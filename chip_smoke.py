@@ -5,18 +5,18 @@
 
 Phases, each fatal on failure:
   1. device line (``nvidia-smi`` name and power limit, torch and CUDA);
-  2. build every CUDA kernel of the main path from ``csrc/`` (one nvcc per
-     source, started together);
-  3. each kernel against its plain PyTorch version at the main-path shape,
-     with kernel / plain / library times (CUDA events, median) and bound;
+  2. build the CUDA kernel of the main path from ``csrc/``;
+  3. the kernel against its plain PyTorch version at the main-path shape;
   4. the main path at full ``baseline_v4_ov`` width: ``PSGv4.infer`` on
      seeded 1344² images with seeded random weights, launch counts read
      around exactly that run; plus the tiny config on the card against the
      CPU path;
-  5. the full-width head with the plain attention forced (test-only
-     switch) against the kernel path on one image with 30 seeded objects,
-     in bf16 and on a float32 copy of the head; then the kernel's times on
-     the main path's own inputs.
+  5. the kernel's, the plain version's and the library's times and the
+     bound on the main path's own kernel inputs (image 0, CUDA events,
+     median of 50 with its interquartile range); then the full-width head
+     with the plain attention forced (test-only switch) against the kernel
+     path on one image with 30 seeded objects, in bf16 and on a float32
+     copy of the head.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -61,8 +61,9 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warmup=3, reps=20) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+def time_ms(fn, warmup=5, reps=50) -> tuple:
+    """``reps`` CUDA-event timings of ``fn()`` after warm-up → (median, 25th
+    percentile, 75th percentile) in ms."""
     import torch
 
     for _ in range(warmup):
@@ -77,7 +78,8 @@ def time_ms(fn, warmup=3, reps=20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return statistics.median(times), q1, q3
 
 
 def skv_bound_ms(q, k, mask) -> tuple:
@@ -137,32 +139,32 @@ def phase_kernel(torch, results):
         check(f"{tag} fully masked 64-patch chunks", q, k, v, m3, tol)
         q4, k4, v4, mk4 = data(NP=1000, H=12, Lq=33, hd=64, P=441, dtype=dtype)
         check(f"{tag} NP=1000 (ragged row tile)", q4, k4, v4, mk4, tol)
-        for hd, P in ((16, 40), (32, 130)):
+        for hd, P in ((16, 40), (64, 130)):
             check(f"{tag} small hd={hd} P={P}", *data(6, 2, 5, hd, P, dtype), tol)
 
 
 def time_kernel(torch, fca, q, k, v, mask, results):
-    """Kernel, plain and library times on the main path's own inputs."""
+    """Kernel, plain and library times (each the median of 50 runs with its
+    interquartile range) and the bound, on these inputs, into ``results``."""
     import torch.nn.functional as F
 
     g = fca.guard_empty_mask(mask)
-    NP, H = q.shape[:2]
+    NP = q.shape[0]
     ke, ve = k[None].expand(NP, -1, -1, -1), v[None].expand(NP, -1, -1, -1)
     am = g[:, None, None, :]
-    t = {}
-    # plain, kernel, kernel, plain: take the better of each pair's median
-    t["plain_ms"] = time_ms(lambda: fca.shared_kv_cross_attn_plain(q, k, v, g))
-    t["ms"] = time_ms(lambda: fca.flash_shared_kv_cross_attn(q, k, v, g))
-    t["ms"] = min(t["ms"], time_ms(lambda: fca.flash_shared_kv_cross_attn(q, k, v, g)))
-    t["plain_ms"] = min(t["plain_ms"], time_ms(lambda: fca.shared_kv_cross_attn_plain(q, k, v, g)))
-    t["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=am))
-    t["bound_ms"], t["bound_by"] = skv_bound_ms(q, k, g)
-    results.update(t)
-    log(f"[kernel] main-path inputs {tuple(q.shape)} {q.dtype} mask density "
-        f"{float(g.float().mean()):.3f}: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, library (SDPA) {t['library_ms']:.4f} ms, "
-        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    runs = {
+        "ms": lambda: fca.flash_shared_kv_cross_attn(q, k, v, g),
+        "plain_ms": lambda: fca.shared_kv_cross_attn_plain(q, k, v, g),
+        "library_ms": lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=am),
+    }
+    text = []
+    for key, fn in runs.items():
+        results[key], q1, q3 = time_ms(fn)
+        text.append(f"{key} {results[key]:.4f} (IQR {q1:.4f}-{q3:.4f})")
+    results["bound_ms"], results["bound_by"] = skv_bound_ms(q, k, g)
+    log(f"[kernel] inputs {tuple(q.shape)} {q.dtype} mask density "
+        f"{float(g.float().mean()):.3f}: " + ", ".join(text)
+        + f"; library = SDPA; bound_ms {results['bound_ms']:.4f} ({results['bound_by']})")
 
 
 def phase_tiny_vs_cpu(torch):
@@ -229,9 +231,9 @@ def main() -> int:
     from openpsg_tpu_torch.ops import _build, flash_cross_attn as fca
 
     t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"[build] {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
+    _build.library("flash_shared_kv_cross_attn")
+    log(f"[build] flash_shared_kv_cross_attn in {time.perf_counter() - t0:.1f} s")
+    for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
@@ -282,16 +284,15 @@ def main() -> int:
     for res in results:
         check_result(res, (H, W))
 
-    # ---- 5. the head with the plain attention forced, against the kernel
+    # ---- 5. kernel times on the main path's own inputs; the head with the
+    # plain attention forced, against the kernel
     img = torch.as_tensor(images[0]).cuda()
     seg = model.segment(img)
-    sel = synthetic_objects(model, seg, model.fuse_select(seg, hws[0]))
-    args = phase_head_parity(torch, model, seg["mask_features"], sel)
-    q, k, v, mask = args
-    log("[kernel] timing on phase 4's masks (no object: every pair guarded to all patches)")
-    time_kernel(torch, fca, q, k, v, torch.ones_like(mask), {})
-    log("[kernel] timing on phase 5's masks (30 objects; these go into the kernels line)")
-    time_kernel(torch, fca, q, k, v, mask, skv)
+    own = model.fuse_select(seg, hws[0])
+    _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *own))
+    log("[kernel] timing on image 0's first Q-Former layer, as phase 4 ran it")
+    time_kernel(torch, fca, *calls[0], skv)
+    phase_head_parity(torch, model, seg["mask_features"], synthetic_objects(model, seg, own))
 
     for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"):
@@ -304,8 +305,8 @@ def main() -> int:
 def synthetic_objects(model, seg, sel, n_obj=30, seed=0):
     """Replace the fused objects by ``n_obj`` disjoint seeded regions (a
     Voronoi partition of the stride-4 grid) with seeded labels, so the head
-    sees realistic sparse pair masks: seeded random weights leave fusion
-    with no surviving object at this width."""
+    sees valid pairs whose masks differ pair by pair: seeded random weights
+    leave fusion with no surviving object at this width."""
     import numpy as np
     import torch
 
@@ -337,48 +338,54 @@ def synthetic_objects(model, seg, sel, n_obj=30, seed=0):
     return (t(masks), valid, t(lab), t(oid), scores) + tuple(sel[5:])
 
 
+def kernel_calls(fn):
+    """Run ``fn()`` with the Q-Former's attention wrapper recorded → (its
+    result, the argument tuple of each wrapper call)."""
+    import openpsg_tpu_torch.models.relation.qformer as qf
+
+    real, calls = qf.flash_shared_kv_cross_attn, []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    qf.flash_shared_kv_cross_attn = record
+    try:
+        return fn(), calls
+    finally:
+        qf.flash_shared_kv_cross_attn = real
+
+
 def phase_head_parity(torch, model, mask_features, sel):
     """Phase 5: ``tail_pre`` (Q-Former, existence heads, top-k, LLM prefix)
     with the kernel against the same with the plain attention forced, on
     one full-width image's features and ``sel``'s objects: in bf16 as the
     main path runs it (tolerance TOL_BF16), then on a float32 copy of the
-    head (TOL_HEAD_F32).  → the kernel's arguments of the bf16 run."""
+    head (TOL_HEAD_F32)."""
     import copy
-
-    import openpsg_tpu_torch.models.relation.qformer as qf
 
     M = model.cfg.head.max_objects_padded
     valid = sel[1]
     pair = torch.arange(M * M, device=valid.device)
     pair_valid = valid[pair // M] & valid[pair % M]
-    real = qf.flash_shared_kv_cross_attn
-    calls = {"n": 0}
-
-    def capture(q, k, v, mask):
-        calls["n"] += 1
-        calls.setdefault("args", (q, k, v, mask))
-        return real(q, k, v, mask)
 
     def run(m, plain):
         heads = {}
         hook = m.head.register_forward_hook(lambda mod, inp, out: heads.update(out))
-        qf.flash_shared_kv_cross_attn = capture
-        n0 = calls["n"]
         try:
-            out, _, _ = m.tail_pre(mask_features, *sel, plain_attention=plain)
+            (out, _, _), calls = kernel_calls(
+                lambda: m.tail_pre(mask_features, *sel, plain_attention=plain))
         finally:
             hook.remove()
-            qf.flash_shared_kv_cross_attn = real
         want = 0 if plain else m.cfg.head.qformer.num_layers
-        if calls["n"] - n0 != want:
-            raise AssertionError(f"{calls['n'] - n0} kernel calls, expected {want}")
+        if len(calls) != want:
+            raise AssertionError(f"{len(calls)} kernel calls, expected {want}")
         return out, heads
 
     m32 = copy.copy(model)
     m32.head = copy.deepcopy(model.head).float()
     for tag, m, tol in (("bf16", model, TOL_BF16), ("f32 head", m32, TOL_HEAD_F32)):
         compare_head(torch, tag, tol, M, pair_valid, run(m, plain=False), run(m, plain=True))
-    return calls["args"]
 
 
 def agree_ranked(torch, name, tol, idx_k, idx_p, full_k, full_p):

@@ -16,10 +16,8 @@
 // What bounds it on an H100 SXM: at the main-path shape (NP=1024 pairs,
 // H=12, Lq=33, hd=64, P=441, bf16) one call is 4*NP*H*Lq*P*hd = 45.8 GFLOP,
 // 46 us at 989 TFLOP/s bf16, and moves ~105 MB (q and out 52 MB each), 31 us
-// at 3.35 TB/s: compute-bound on the tensor cores at ~46 us with every patch
-// unmasked.  Real pair masks leave a few percent of the patches unmasked;
-// the products they need shrink with that density, and the bytes (~31 us)
-// bound the call.
+// at 3.35 TB/s: compute-bound on the tensor cores at ~46 us.  Every chunk
+// is computed whatever the mask holds, so the work does not depend on it.
 //
 // Design (simple first; wgmma/TMA are later work).  The TPU's sequential
 // chunk grid axis becomes a loop inside the block.  One block = 16 * kWarps
@@ -30,9 +28,7 @@
 // with f32 accumulation; f32: CUDA-core FMAs, to keep full f32 accuracy),
 // applies the masked online-softmax update with two lanes per row, and adds
 // P.V into a float32 accumulator strip kept in shared memory.  Rows of one
-// strip may belong to two pairs: the mask is looked up per row.  A warp
-// skips a chunk in which all its rows are masked, so the work follows the
-// pair masks' density (object pairs cover a few percent of the patches).
+// strip may belong to two pairs: the mask is looked up per row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,13 +37,7 @@
 
 namespace {
 
-#ifndef SKV_WARPS
-#define SKV_WARPS 4
-#endif
-#ifndef SKV_MIN_BLOCKS
-#define SKV_MIN_BLOCKS 3
-#endif
-constexpr int kWarps = SKV_WARPS;    // one 16-row strip per warp
+constexpr int kWarps = 4;            // one 16-row strip per warp
 constexpr int kRows = 16 * kWarps;   // rows per block
 constexpr int kChunk = 64;           // patches per chunk
 constexpr float kNegBig = -1e9f;     // the Pallas body's masked fill
@@ -193,7 +183,7 @@ __device__ __forceinline__ void strip_pv_wmma(const __nv_bfloat16* Pw,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(32 * kWarps, SKV_MIN_BLOCKS)
+__global__ void __launch_bounds__(32 * kWarps, 3)
 skv_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const uint8_t* __restrict__ mask,
                 T* __restrict__ out, int NP, int H, int Lq, int P, float scale) {
@@ -262,18 +252,6 @@ skv_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       Ms[i] = col < n_valid ? mask[(pair0 + pp) * P + c0 + col] : 0;
     }
     __syncthreads();
-
-    // A chunk where every row of this warp's strip is masked changes
-    // nothing: with a finite running max, alpha = 1 and p = 0; with none
-    // yet, the next unmasked chunk's alpha is exp(-inf) = 0 either way.
-    // So the warp skips it (bit-exact; Ms rows are 64-byte aligned).
-    uint32_t any_bits = 0;
-    if (row_ok) {
-      const uint32_t* mw = reinterpret_cast<const uint32_t*>(mrow + half * 32);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) any_bits |= mw[i];
-    }
-    if (!__any_sync(0xffffffffu, any_bits != 0)) continue;
 
     if constexpr (sizeof(T) == 2) {
       strip_scores_wmma<HD>(Qw, Ks, Sw);
@@ -365,7 +343,6 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         cudaStream_t stream) {
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, mask, out, NP, H, Lq, P, stream);
-    case 32: return launch<T, 32>(q, k, v, mask, out, NP, H, Lq, P, stream);
     case 64: return launch<T, 64>(q, k, v, mask, out, NP, H, Lq, P, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -373,7 +350,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {16, 32, 64}.  mask is [NP, P]
+// dtype: 0 = float32, 1 = bfloat16; hd in {16, 64} (the tiny and the
+// baseline_v4_ov Q-Former).  mask is [NP, P]
 // bool (one byte each).  All tensors contiguous, 16-byte aligned.
 // Returns the launch's cudaGetLastError() (0 on success).
 extern "C" int openpsg_flash_skv_forward(const void* q, const void* k, const void* v,

@@ -1,11 +1,10 @@
 """Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
 
-Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
-use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``build/kernels/`` at the repository root (listed in ``.gitignore``).  The
-library name carries a hash of the source, so an edited kernel is rebuilt
-and a stale one never loaded.  :func:`build` starts one ``nvcc`` per
-source, all at once, and waits for them together.
+Kernel ``name`` is ``csrc/<name>.cu``, a file with a plain C interface.  It
+is compiled on first use with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
+The library name carries a hash of the source, so an edited kernel is
+rebuilt and a stale one never loaded.
 """
 
 from __future__ import annotations
@@ -15,9 +14,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -26,11 +24,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# kernel name → source file under csrc/
-SOURCES = {"flash_shared_kv_cross_attn": "flash_shared_kv_cross_attn.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+# kernel name → nvcc output of its build in this process (``-Xptxas -v``:
+# registers, shared memory, spills)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -40,50 +38,22 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
-
-
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` process per source, started together.  Returns each kernel's
-    compiler output (``-Xptxas -v``: registers, shared memory, spills);
-    raises if any compile fails."""
-    names = list(SOURCES if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode == 0:
-            os.replace(tmp, out)  # atomic: never a half-written library
-        else:
-            failed.append(name)
-    if failed:
-        raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
-            + "\n".join(logs[n] for n in failed)
-        )
-    return logs
-
-
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built on first use."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            _LIBS[name] = lib
+    lib = _LIBS.get(name)
+    if lib is not None:
         return lib
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        BUILD_LOGS[name] = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+        os.replace(tmp, out)  # atomic: never a half-written library
+    lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib

@@ -25,7 +25,7 @@ import torch
 from openpsg_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 64)  # the tiny and the baseline_v4_ov Q-Former
 
 
 def guard_empty_mask(mask: torch.Tensor) -> torch.Tensor:

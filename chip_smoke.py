@@ -5,18 +5,36 @@
 
 Phases, each fatal on failure:
   1. device line (``nvidia-smi`` name and power limit, torch and CUDA);
-  2. build the CUDA kernel of the main path from ``csrc/``;
-  3. the kernel against its plain PyTorch version at the main-path shape;
-  4. the main path at full ``baseline_v4_ov`` width: ``PSGv4.infer`` on
-     seeded 1344² images with seeded random weights, launch counts read
-     around exactly that run; plus the tiny config on the card against the
-     CPU path;
-  5. the kernel's, the plain version's and the library's times and the
-     bound on the main path's own kernel inputs (image 0, CUDA events,
-     median of 50 with its interquartile range); then the full-width head
-     with the plain attention forced (test-only switch) against the kernel
-     path on one image with 30 seeded objects, in bf16 and on a float32
-     copy of the head.
+  2. build both CUDA kernels from ``csrc/`` (one nvcc each, started
+     together from two threads) and log their registers and spills;
+  3. each kernel against its plain PyTorch version: the shared-KV
+     attention at the main-path shape, the row gather bitwise on seeded
+     cases (float32 and bf16, ragged sizes, out-of-range indices, C = 128
+     and 16);
+  4. the per-image path at full ``baseline_v4_ov`` width (bf16 LLM):
+     ``PSGv4.infer`` on seeded 1344² images with seeded random weights,
+     launch counts read around exactly that run; plus the tiny config on
+     the card against the CPU path, with its float32 LLM through ``infer``
+     and with an int8 bf16 LLM through ``infer_microbatch`` (3 images,
+     int8-activation prefill);
+  5. the kernels' times, the plain versions', the library's and the bound
+     on the main path's own inputs (image 0, CUDA events, median of 50 with
+     its interquartile range): the shared-KV kernel on the first Q-Former
+     layer's inputs, the gather on level 0 of the first pixel-decoder
+     encoder layer (quad table and row index rebuilt by
+     ``ops/deform_attn.level_samples``); then the full-width head with the
+     plain attention forced (test-only switch) against the kernel path on
+     one image with 30 seeded objects, in bf16 and on a float32 copy;
+  6. the deployment path at full ``baseline_v4_ov_w8a8`` width (int8
+     Llama-2-7B, int8-activation prefill, encoder points 2,2,2,4):
+     ``QDense`` on the card against its CPU path at the model's widths;
+     ``PSGv4.infer_microbatch`` on 4 seeded 1344² images (a warm-up, then
+     one timed call, launch counts read around it), then the same images
+     through ``PSGv4.infer`` on the same model, its decode teacher-forced
+     on the micro-batch's tokens: pan maps, objects, top-20 pairs and
+     top-100 triplets identical, logits within TOL_LOGIT_REL, and a token
+     chosen differently only where its top-1 margin is within twice the
+     largest logit change at the steps that agree.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -25,6 +43,7 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -48,6 +67,20 @@ TOL_BF16 = 2e-2  # kernel rounds p and the output to bf16; the plain
                  # reference runs in f32 from the same bf16 inputs
 TOL_HEAD_F32 = 1e-4  # the whole f32 head (2 Q-Former layers, LayerNorms,
                      # heads): kernel and plain differ in summation order only
+TOL_LOGIT_REL = 0.1  # largest LLM logit change between the micro-batch (80
+                     # decode rows, 4x the prefill rows) and per-image runs
+                     # (or the card and the CPU), relative to the largest
+                     # logit: both run bf16 activations through every
+                     # layer, and the GEMMs' row count (or device) changes
+                     # the summation order, so bf16 roundings flip and
+                     # propagate; a wrong weight, scale or row would move
+                     # logits by their own size
+TOL_QDENSE_FLIPS = 0.01  # share of bf16 QDense outputs (weight-only) one
+                         # bf16 step apart between card and CPU: the same
+                         # exact products summed in float32 in another order
+                         # flip a rounding only within ~1e-6 of a boundary;
+                         # a product rounded to bf16 before the scale moves
+                         # more than 10% of them
 
 
 def log(*a):
@@ -168,21 +201,30 @@ def time_kernel(torch, fca, q, k, v, mask, results):
 
 
 def phase_tiny_vs_cpu(torch):
-    """The tiny config on the card (kernel path) against the CPU path."""
+    """The tiny config on the card (kernel path) against the CPU path: with
+    its float32 LLM through ``infer`` (identical results); then with an
+    int8 bf16 LLM (``quant``, ``act_int8``) through ``infer_microbatch`` on
+    3 images, whose prefill crosses the 256-row int8-activation rule, the
+    CPU run teacher-forced on the card's tokens (:func:`compare_runs`)."""
+    import dataclasses
+
     import numpy as np
 
     from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
+    from openpsg_tpu_torch.models.llm.llama import QDense
 
-    cfg = PSGv4Config.tiny_test()
-    import dataclasses
+    def pair(cfg):
+        cpu = PSGv4(cfg, seed=3, device="cpu")
+        gpu = PSGv4(cfg, seed=3, device="cuda")
+        for part in ("segmenter", "head", "llm"):
+            getattr(gpu, part).load_state_dict(getattr(cpu, part).state_dict())
+        gpu.class_embeds = cpu.class_embeds.cuda()
+        return cpu, gpu
 
-    cfg = dataclasses.replace(cfg, iou_thr=0.1)
-    cpu = PSGv4(cfg, seed=3, device="cpu")
-    gpu = PSGv4(cfg, seed=3, device="cuda")
-    for part in ("segmenter", "head", "llm"):
-        getattr(gpu, part).load_state_dict(getattr(cpu, part).state_dict())
-    gpu.class_embeds = cpu.class_embeds.cuda()
-    img = np.random.default_rng(5).integers(0, 256, (64, 64, 3)).astype(np.uint8)
+    cfg = dataclasses.replace(PSGv4Config.tiny_test(), iou_thr=0.1)
+    cpu, gpu = pair(cfg)
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
     a, b = cpu.infer(img, (64, 60)), gpu.infer(img, (64, 60))
     same = (np.array_equal(a["pan_results"], b["pan_results"])
             and a["rel_results"] == b["rel_results"]
@@ -191,6 +233,24 @@ def phase_tiny_vs_cpu(torch):
         f"relations {len(b['rel_results']['relation'])} identical={same}")
     if not same:
         raise AssertionError("tiny config on the card disagrees with the CPU path")
+
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, quant=True, act_int8=True, dtype=torch.bfloat16))
+    cpu, gpu = pair(cfg)
+    imgs = np.stack([img] + [rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
+                             for _ in range(2)])
+    hws = [(64, 60), (58, 61), (60, 64)]
+    c = gpu.cfg
+    rows = len(hws) * c.head.top_pairs * (c.head.qformer.num_relation_queries
+                                          + gpu.llm_parts["max_len"])
+    assert rows >= QDense.ACT_INT8_MIN_ROWS, rows
+    with recorded(gpu) as a:
+        gpu.infer_microbatch(imgs, hws)
+    with recorded(cpu, forced=fed_tokens(torch, a)) as b:
+        cpu.infer_microbatch(imgs, hws)
+    log(f"[tiny] int8 bf16 LLM, infer_microbatch of {len(hws)} images ({rows} prefill "
+        "rows, int8 activations): card vs CPU")
+    compare_runs(torch, "tiny", per_image(torch, a), per_image(torch, b))
 
 
 def check_result(res, hw):
@@ -228,13 +288,17 @@ def main() -> int:
         f"python {sys.version.split()[0]} {torch.cuda.get_device_name(0)}")
 
     # ---- 2. build
-    from openpsg_tpu_torch.ops import _build, flash_cross_attn as fca
+    from concurrent.futures import ThreadPoolExecutor
 
+    from openpsg_tpu_torch.ops import _build, flash_cross_attn as fca, msda_gather as mg
+
+    kernels = ("flash_shared_kv_cross_attn", "sparse_row_gather")
     t0 = time.perf_counter()
-    _build.library("flash_shared_kv_cross_attn")
-    log(f"[build] flash_shared_kv_cross_attn in {time.perf_counter() - t0:.1f} s")
-    for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
+    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source, all at once
+        list(pool.map(_build.library, kernels))
+    log(f"[build] {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (in parallel)")
+    for name in kernels:
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
 
@@ -242,7 +306,12 @@ def main() -> int:
     skv = {"name": "flash_shared_kv_cross_attn", "route": "cuda",
            "source": "openpsg_tpu_torch/csrc/flash_shared_kv_cross_attn.cu",
            "replaces": "openpsg_tpu/ops/pallas/flash_cross_attn.py:80"}
+    gat = {"name": "sparse_row_gather", "route": "cuda",
+           "source": "openpsg_tpu_torch/csrc/sparse_row_gather.cu",
+           "replaces": "openpsg_tpu/ops/pallas/msda_gather.py:70",
+           "on_main_path": False}
     phase_kernel(torch, skv)
+    phase_gather(torch, gat)
 
     # ---- 4. main path at full width
     import numpy as np
@@ -264,6 +333,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fca.flash_shared_kv_cross_attn.launches = 0
+    mg.sparse_row_gather.launches = 0
     results = []
     for i, (img, hw) in enumerate(zip(images, hws)):
         st = {}
@@ -276,9 +346,11 @@ def main() -> int:
             + f"; objects {len(res['rel_results']['object_id_list'])}, relations "
             f"{len(res['rel_results']['relation'])}, decode_trips {res['decode_steps']}")
     launches = fca.flash_shared_kv_cross_attn.launches
-    skv["launches"] = launches
+    skv["launches_by_path"] = {"infer": launches}
+    gat["launches_by_path"] = {"infer": mg.sparse_row_gather.launches}
     log(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"flash_shared_kv_cross_attn launches {launches} for {len(images)} images")
+        f"flash_shared_kv_cross_attn launches {launches} for {len(images)} images; "
+        f"sparse_row_gather launches {mg.sparse_row_gather.launches}")
     if launches != 2 * len(images):
         raise AssertionError(f"expected {2 * len(images)} kernel launches, saw {launches}")
     for res in results:
@@ -287,19 +359,337 @@ def main() -> int:
     # ---- 5. kernel times on the main path's own inputs; the head with the
     # plain attention forced, against the kernel
     img = torch.as_tensor(images[0]).cuda()
-    seg = model.segment(img)
+    seg, msda = first_msda_call(lambda: model.segment(img))
     own = model.fuse_select(seg, hws[0])
     _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *own))
     log("[kernel] timing on image 0's first Q-Former layer, as phase 4 ran it")
     time_kernel(torch, fca, *calls[0], skv)
+    log("[gather] timing on level 0 of image 0's first pixel-decoder encoder layer")
+    time_gather(torch, mg, msda, gat)
     phase_head_parity(torch, model, seg["mask_features"], synthetic_objects(model, seg, own))
+    del model, seg, own, calls, msda
+    torch.cuda.empty_cache()
 
-    for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms"):
-        assert key in skv, key
-    log(json.dumps({"kernels": [skv]}))
+    # ---- 6. the deployment path
+    phase_deployment(torch, skv, gat)
+
+    for k in (skv, gat):
+        k["launches"] = sum(k["launches_by_path"].values())
+        for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in k, key
+    log(json.dumps({"kernels": [skv, gat]}))
     log(smi)
     return 0
+
+
+def phase_gather(torch, results):
+    """Phase 3: the row-gather kernel against its plain version, bitwise, on
+    seeded cases: float32 and bf16 rows; S and HW off any tile size;
+    negative and too-large indices (zero rows); C = 128 (the main path's
+    4 × head_dim 32) and C = 16 (the tiny segmenter's)."""
+    from openpsg_tpu_torch.ops import msda_gather as mg
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = (  # name, nH, HW, C, S, lowest index, highest index + 1
+        ("C=128 in range", 8, 4096, 128, 8192, 0, 4096),
+        ("C=128 ragged, out-of-range indices", 8, 1000, 128, 1537, -300, 1400),
+        ("C=16 ragged, out-of-range indices", 3, 300, 16, 513, -600, 1200),
+    )
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, nH, HW, C, S, lo, hi in cases:
+            quad = torch.randn(nH, HW, C, generator=gen, device="cuda").to(dtype)
+            idx = torch.randint(lo, hi, (nH, S), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            got = mg.sparse_row_gather(quad, idx)
+            torch.cuda.synchronize()
+            want = mg.sparse_row_gather_plain(quad, idx)
+            e = float((got - want).abs().max())
+            outside = float(((idx < 0) | (idx >= HW)).float().mean())
+            same = torch.equal(got, want) and got.dtype == torch.float32
+            log(f"[gather] {str(dtype).split('.')[-1]} {name} (nH={nH} HW={HW} C={C} "
+                f"S={S}, {outside:.2f} out of range): bitwise {'ok' if same else 'FAIL'}, "
+                f"max_abs_err={e:.3e}")
+            if not same:
+                raise AssertionError(f"gather kernel differs from plain on {name}")
+            err = max(err, e)
+    results["max_abs_err"] = err
+
+
+def first_msda_call(fn):
+    """Run ``fn()`` with the segmenter's ``ms_deform_attn`` recorded → (its
+    result, the arguments of the first call: the first pixel-decoder
+    encoder layer's value, spatial shapes, locations and weights)."""
+    import openpsg_tpu_torch.models.segmenter.deform_layers as dl
+
+    real, calls = dl.ms_deform_attn, []
+
+    def record(*args, **kw):
+        if not calls:
+            calls.append(args[:4])
+        return real(*args, **kw)
+
+    dl.ms_deform_attn = record
+    try:
+        return fn(), calls[0]
+    finally:
+        dl.ms_deform_attn = real
+
+
+def time_gather(torch, mg, msda, results):
+    """Kernel, plain and library (``torch.gather``) times and the bound of
+    the row gather on level 0 of the recorded layer: the quad table and row
+    index that ``ms_deform_attn`` gathers from, rebuilt by
+    ``level_samples``.  The kernel must match the plain version bitwise."""
+    from openpsg_tpu_torch.ops.deform_attn import level_samples
+
+    value, shapes, loc, aw = msda
+    quad, idx, _ = level_samples(value, shapes, loc, aw, 0, loc.shape[4])
+    quad, idx = quad[0].contiguous(), idx[0].to(torch.int32).contiguous()
+    nH, HW, C = quad.shape
+    got = mg.sparse_row_gather(quad, idx)
+    torch.cuda.synchronize()
+    want = mg.sparse_row_gather_plain(quad, idx)
+    if not torch.equal(got, want):
+        raise AssertionError("gather kernel differs from plain on the main path's level 0")
+    results["max_abs_err"] = max(results["max_abs_err"], float((got - want).abs().max()))
+    del got, want
+    idx64 = idx.long()[..., None].expand(-1, -1, C)
+    runs = {
+        "ms": lambda: mg.sparse_row_gather(quad, idx),
+        "plain_ms": lambda: mg.sparse_row_gather_plain(quad, idx),
+        "library_ms": lambda: torch.gather(quad, 1, idx64),
+    }
+    text = []
+    for key, fn in runs.items():
+        results[key], q1, q3 = time_ms(fn)
+        text.append(f"{key} {results[key]:.4f} (IQR {q1:.4f}-{q3:.4f})")
+    # bytes: each distinct quad row the indices reach, read once; the
+    # indices; the float32 output written once.  No arithmetic.
+    inside = (idx >= 0) & (idx < HW)
+    rows = sum(int(torch.unique(idx[h][inside[h]]).numel()) for h in range(nH))
+    nbytes = (rows * C * quad.element_size() + idx.numel() * idx.element_size()
+              + idx.numel() * C * 4)
+    results["bound_ms"], results["bound_by"] = nbytes / PEAK_BYTES * 1e3, "bytes"
+    log(f"[gather] inputs quad {tuple(quad.shape)} {quad.dtype}, idx {tuple(idx.shape)} "
+        f"({rows} distinct rows of {nH * HW}, {float(inside.float().mean()):.4f} in range); "
+        + ", ".join(text) + f"; library = torch.gather (bf16 out); bound_ms "
+        f"{results['bound_ms']:.4f} ({nbytes / 1e6:.1f} MB, bytes); bitwise equal to plain")
+
+
+@contextlib.contextmanager
+def recorded(model, forced=None):
+    """Record, while the block runs, the host dicts ``postprocess`` receives
+    and the LLM's last-position logits of every forward (prefill, then one
+    per decode trip).  With ``forced`` [B, F] (the tokens another run's
+    decode steps fed, :func:`fed_tokens`), decode step t feeds
+    ``forced[:, t]`` instead of its own choice (teacher forcing), so both
+    runs' logits at step t follow the same history."""
+    rec = {"dev": [], "logits": []}
+    real, real_embed = model.postprocess, model.llm.embed
+
+    def embed(ids):
+        t = len(rec["logits"]) - 1         # the decode step: forwards so far, less prefill
+        if forced is not None and ids.shape[1] == 1 and 0 <= t < forced.shape[1]:
+            ids = forced[:, t:t + 1].to(ids.device)
+        return real_embed(ids)
+
+    model.postprocess = lambda dev: rec["dev"].append(dev) or real(dev)
+    model.llm.embed = embed
+    hook = model.llm.register_forward_hook(
+        lambda mod, args, out: rec["logits"].append(out[0][:, -1].float()))
+    try:
+        yield rec
+    finally:
+        hook.remove()
+        del model.postprocess, model.llm.embed
+
+
+def fed_tokens(torch, rec):
+    """The tokens a recorded run's decode steps fed: the argmax of each
+    forward's logits → [B, forwards]."""
+    return torch.stack([lg.argmax(dim=-1) for lg in rec["logits"]], dim=1)
+
+
+def per_image(torch, rec):
+    """A recorded run → [(host dict, logits [forwards, K, V])], one per image."""
+    K = rec["dev"][0]["gen_tokens"].shape[0]
+    lg = torch.stack(rec["logits"])
+    return [(d, lg[:, i * K:(i + 1) * K]) for i, d in enumerate(rec["dev"])]
+
+
+def phase_qdense(torch, model):
+    """``QDense`` on the card against its CPU path at Llama-2-7B widths: the
+    deployment model's own int8 weights (layer 0's wq, w_gate, w_down, and
+    lm_head), seeded bf16 inputs of 20 and 80 rows (a decode step of one
+    image and of the micro-batch: weight-only) and 320 rows (over the
+    256-row rule: int8 activations).  The int8-activation path is integer
+    products and elementwise float32 on both sides: bitwise equal.  The
+    weight-only path sums the same exact products in float32 in another
+    order, so a bf16 output rounds the other way only where its float32
+    value lies within that order's error of a rounding boundary: every
+    output within one bf16 step plus the worst-case float32 error of two
+    orders of the CPU's, at most TOL_QDENSE_FLIPS of them different.
+    Under 256 rows act_int8 is bitwise equal to
+    act_int8=False on the card (decode steps do not change)."""
+    import copy
+
+    from openpsg_tpu_torch.models.llm.llama import QDense
+
+    layer, core = model.llm.core.layers[0], model.llm.core
+    mods = {"wq": layer.wq, "w_gate": layer.w_gate, "w_down": layer.w_down,
+            "lm_head": core.lm_head}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, mod in mods.items():
+        assert isinstance(mod, QDense) and mod.act_int8, name
+        on_cpu = copy.deepcopy(mod).cpu()
+        weight_only = copy.copy(mod)               # shares the weights
+        weight_only.act_int8 = False
+        N, K = mod.weight_q.shape
+        # lm_head sees B x 1 rows (last logit only): never the int8 path
+        for rows in (20, 80) if name == "lm_head" else (20, 80, 320):
+            x = torch.randn(rows, K, generator=gen, device="cuda").to(torch.bfloat16)
+            with torch.no_grad():
+                got, want = mod(x), on_cpu(x.cpu()).cuda()
+                diff = (got.float() - want.float()).abs()
+                if rows >= QDense.ACT_INT8_MIN_ROWS:
+                    ok, text = torch.equal(got, want), "int8 activations, bitwise"
+                else:
+                    # one bf16 rounding step, plus the worst-case float32
+                    # error of two summation orders, 2·K·2^-24·Σ|x·w|·scale
+                    big = torch.maximum(got.float().abs(), want.float().abs())
+                    step = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+                    order = (2 * K * 2.0 ** -24
+                             * (x.float().abs() @ mod.weight_q.float().abs().t()) * mod.scale)
+                    beyond = int((diff > step + order).sum())
+                    flips = float((diff > 0).float().mean())
+                    same = torch.equal(got, weight_only(x))
+                    ok = not beyond and flips <= TOL_QDENSE_FLIPS and same
+                    text = (f"weight-only, {flips:.4%} of outputs differ (tol "
+                            f"{TOL_QDENSE_FLIPS:.0%}), {int((diff > step).sum())} by more than "
+                            f"one bf16 step, {beyond} beyond step + float32 order bound; "
+                            f"act_int8 == weight-only on the card: {same}")
+            log(f"[qdense] {name} [{N}, {K}] x {rows} rows: {text}, max diff "
+                f"{float(diff.max()):.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"QDense {name} on the card disagrees with its CPU path")
+
+
+def phase_deployment(torch, skv, gat):
+    """Phase 6: ``QDense`` on the card against the CPU; ``infer_microbatch``
+    at full ``baseline_v4_ov_w8a8`` width on 4 seeded images (warm-up, then
+    one timed call), then ``infer`` on each image with the same int8 model,
+    teacher-forced on the micro-batch's tokens, and the two compared."""
+    import numpy as np
+
+    from openpsg_tpu_torch.models.detectors.psg_v4 import AUTO_MB_SIZE, PSGv4, PSGv4Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+
+    t0 = time.perf_counter()
+    model = PSGv4(PSGv4Config.baseline_v4_ov_w8a8(), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[deploy] built baseline_v4_ov_w8a8 (seeded bf16 LLM quantized by quantize_llama) "
+        f"in {time.perf_counter() - t0:.1f} s; weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    phase_qdense(torch, model)
+    H, W = BUCKET
+    rng = np.random.default_rng(1)
+    hws = [(H, W), (1200, 1344), (1344, 1000), (1100, 1200)][:AUTO_MB_SIZE]
+    images = np.stack([rng.integers(0, 256, (H, W, 3)).astype(np.uint8) for _ in hws])
+    N = len(hws)
+    model.infer_microbatch(images, hws)      # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fca.flash_shared_kv_cross_attn.launches = 0
+    mg.sparse_row_gather.launches = 0
+    st = {}
+    with recorded(model) as mb:
+        t0 = time.perf_counter()
+        res = model.infer_microbatch(images, hws, stage_times=st)
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = fca.flash_shared_kv_cross_attn.launches
+    skv["launches_by_path"]["infer_microbatch"] = launches
+    gat["launches_by_path"]["infer_microbatch"] = mg.sparse_row_gather.launches
+    log(f"[deploy] infer_microbatch of {N} images: total {wall:.1f} ms, {wall / N:.1f} "
+        "ms/image; per image " + ", ".join(f"{k} {v / N:.1f} ms" for k, v in st.items())
+        + f"; decode_trips {res[0]['decode_steps']} (joint); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_shared_kv_cross_attn "
+        f"launches {launches}; sparse_row_gather launches {mg.sparse_row_gather.launches}")
+    if launches != 2 * N:
+        raise AssertionError(f"expected {2 * N} kernel launches, saw {launches}")
+    for r in res:
+        check_result(r, (H, W))
+        assert r["decode_steps"] == res[0]["decode_steps"]
+
+    fed = fed_tokens(torch, mb)
+    K = mb["dev"][0]["gen_tokens"].shape[0]
+    per = []
+    for i, (img, hw) in enumerate(zip(images, hws)):
+        st = {}
+        with recorded(model, forced=fed[i * K:(i + 1) * K]) as one:
+            t0 = time.perf_counter()
+            model.infer(img, hw, stage_times=st)
+            wall = (time.perf_counter() - t0) * 1e3
+        per += per_image(torch, one)
+        log(f"[deploy] infer image {i} hw={hw} (same int8 model, decode teacher-forced on "
+            f"the micro-batch's tokens): total {wall:.1f} ms; "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
+            + f"; decode_trips {int(one['dev'][0]['decode_trips'])}")
+    compare_runs(torch, "deploy", per_image(torch, mb), per)
+
+
+def compare_runs(torch, tag, a, b):
+    """Two runs of one model on the same images (:func:`per_image` lists),
+    run b teacher-forced on run a's tokens: everything before the LLM runs
+    the same per-image code, so it must be identical; the LLM's GEMMs ran
+    with other row counts (or on another device), so its choices are held
+    to :func:`agree_tokens`."""
+    import numpy as np
+
+    for i, ((da, _), (db, _)) in enumerate(zip(a, b)):
+        for key in ("pan_seg", "object_ids", "object_valid", "top_pair_idx", "mc_triplets"):
+            if not np.array_equal(da[key], db[key]):
+                raise AssertionError(f"{tag} image {i}: {key} differs between the runs")
+    log(f"[{tag}] pan maps, object lists, top pairs and top-100 triplets identical "
+        f"on all {len(a)} images")
+    runs = []
+    for (da, la), (db, lb) in zip(a, b):
+        T = min(int(da["decode_trips"]), int(db["decode_trips"]))
+        runs.append((la[:T], lb[:T].to(la.device)))
+    agree_tokens(torch, tag, runs)
+
+
+def agree_tokens(torch, tag, runs):
+    """Greedy choices of two runs of one LLM on the same sequences, given
+    per image as (logits_a [T, K, V], logits_b [T, K, V]), logits_t the
+    forward that chose token t, run b teacher-forced on run a's tokens: at
+    every step both saw the same history.  Gates: (1) the largest logit
+    change between the runs is within TOL_LOGIT_REL of the largest logit;
+    (2) with ``err`` the largest change at the steps where both choose the
+    same token, a step where they choose differently must have a top-1
+    margin (run b's) of at most 2·err — a wider margin would need a change
+    larger than every change at the agreeing steps."""
+    differ, change, margin = [], [], []
+    for la, lb in runs:
+        differ.append((la.argmax(dim=-1) != lb.argmax(dim=-1)).flatten())
+        change.append((la - lb).abs().amax(dim=-1).flatten())
+        top2 = torch.topk(lb, 2, dim=-1).values
+        margin.append((top2[..., 0] - top2[..., 1]).flatten())
+    differ, change, margin = (torch.cat(t) for t in (differ, change, margin))
+    scale = max(float(lb.abs().max()) for _, lb in runs)
+    err_all = float(change.max())
+    err = float(change[~differ].max()) if bool((~differ).any()) else 0.0
+    n_diff = int(differ.sum())
+    bad = int((differ & (margin > 2 * err)).sum())
+    widest = float(margin[differ].max()) if n_diff else 0.0
+    log(f"[{tag}] tokens at the same history: {differ.numel() - n_diff}/{differ.numel()} "
+        f"steps choose the same token; largest logit change {err_all:.4e} "
+        f"({err_all / scale:.3e} of the largest logit {scale:.3f}, tol {TOL_LOGIT_REL:g}), "
+        f"{err:.4e} at the agreeing steps; {n_diff} steps differ, widest top-1 margin "
+        f"among them {widest:.4e}, {bad} with a margin > 2*{err:.4e}")
+    if bad or not err_all <= TOL_LOGIT_REL * scale:
+        raise AssertionError(f"{tag}: the two runs' tokens disagree beyond the margin rule")
 
 
 def synthetic_objects(model, seg, sel, n_obj=30, seed=0):

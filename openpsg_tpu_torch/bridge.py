@@ -11,7 +11,10 @@ names mirror the flax names, so the map is mechanical:
   become OIHW; flax ``MultiHeadDotProductAttention`` kernels
   ``[in, heads, hd]`` / ``[heads, hd, out]`` and biases ``[heads, hd]`` are
   flattened over (heads, hd);
-* ``scale`` (norms) and ``embedding`` become ``weight``.
+* ``scale`` (norms) and ``embedding`` become ``weight``;
+* int8 ``QDense`` leaves (``quantize_llama`` trees): ``kernel_q`` ``[in, out]``
+  becomes ``weight_q`` ``[out, in]`` (still int8), and the per-channel
+  ``scale`` under a quantized projection stays ``scale``.
 
 Accounting is strict: every leaf maps to distinct port parameters, every
 port parameter is filled (``load_state_dict(strict=True)``), and ``text``
@@ -25,6 +28,8 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from openpsg_tpu_torch.models.llm.llama import QUANT_TARGETS
 
 # flax path prefix of each nn.scan stack → port prefix of its ModuleList
 SCANNED = {
@@ -57,8 +62,12 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
                 return "weight", arr.reshape(-1, arr.shape[-1]).T
             return "weight", arr.reshape(arr.shape[0], -1).T
         raise ValueError(f"kernel of rank {arr.ndim} at {'/'.join(path)}")
+    if name == "kernel_q":  # QDense int8 [in, out]
+        return "weight_q", arr.T
     if name == "bias" and arr.ndim == 2 and parent in ("query", "key", "value"):
         return "bias", arr.reshape(-1)
+    if name == "scale" and parent in QUANT_TARGETS:  # QDense per-channel scale
+        return "scale", arr
     if name in ("scale", "embedding"):
         return "weight", arr
     return name, arr

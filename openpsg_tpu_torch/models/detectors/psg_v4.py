@@ -1,13 +1,20 @@
-"""PSG v4 per-image inference (counterpart of
+"""PSG v4 inference (counterpart of
 ``openpsg_tpu/models/detectors/psg_v4.py``):
 
     image ─ segmenter ─ fusion ─ object select ─ pair instructions
           ─ Q-Former over all pairs ─ top-20 pairs / top-100 triplets
           ─ batched greedy LLM decode ─ postprocess (host)
 
-Weights are seeded random at construction (``seed``); trained or JAX
-weights load through :mod:`openpsg_tpu_torch.bridge`.  Class embeddings are
-a tensor (``class_embeds``); the language encoder is a later slice.
+Entry points: :meth:`PSGv4.infer` (one image), :meth:`PSGv4.infer_microbatch`
+(the deployment program: everything up to the LLM one image at a time, then
+one prefill and decode over all images' pairs), :meth:`PSGv4.infer_batch`
+and :meth:`PSGv4.infer_gt` (ground-truth masks in place of fusion).
+
+Weights are seeded random at construction (``seed``); with
+``llm.quant`` the seeded dense LLM is quantized by :func:`quantize_llama`.
+Trained or JAX weights load through :mod:`openpsg_tpu_torch.bridge`.  Class
+embeddings are a tensor (``class_embeds``); the language encoder is a later
+slice.
 """
 
 from __future__ import annotations
@@ -28,7 +35,11 @@ from openpsg_tpu_torch.data.vocab import (
 )
 from openpsg_tpu_torch.models.common import init_params
 from openpsg_tpu_torch.models.llm.decode import greedy_decode
-from openpsg_tpu_torch.models.llm.llama import LlamaConfig, LlamaWithEmbeddings
+from openpsg_tpu_torch.models.llm.llama import (
+    LlamaConfig,
+    LlamaWithEmbeddings,
+    quantize_llama,
+)
 from openpsg_tpu_torch.models.relation.head_v4 import (
     HeadV4Config,
     RelationHeadV4,
@@ -55,6 +66,12 @@ QFORMER_INSTRUCTION = "Is there a relation between {} and {}?"
 LLM_INSTRUCTION = "What are the relations between {} and {}? Assistant: "
 MAX_INSTR_LEN = 16
 MAX_PROMPT_LEN = 20
+
+# Micro-batch size and the decode length above which the JAX package's
+# tools/infer.py controller prefers the micro-batch program (psg_v4.py:72-73);
+# that controller comes with the port's host runtime.
+AUTO_MB_DECODE_STEPS = 10
+AUTO_MB_SIZE = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +103,21 @@ class PSGv4Config:
             segmenter=SegmenterConfig(dtype=bf16),
             head=HeadV4Config(qformer=QFormerConfig(dtype=bf16), dtype=bf16),
             llm=LlamaConfig.llama2_7b(),
+        )
+
+    @staticmethod
+    def baseline_v4_ov_w8a8() -> "PSGv4Config":
+        """The deployment program's model: :meth:`baseline_v4_ov` with int8
+        Llama-2-7B weights (``quant``), int8-activation prefill
+        (``act_int8``) and encoder sample points (2, 2, 2, 4) per level —
+        what bench.py:176-238 runs by default and core/builder.py:68-77,
+        152-158 builds from ``tpu.llm_int8 / act_int8 /
+        enc_points_per_level``."""
+        c = PSGv4Config.baseline_v4_ov()
+        return dataclasses.replace(
+            c,
+            segmenter=dataclasses.replace(c.segmenter, enc_points_per_level=(2, 2, 2, 4)),
+            llm=dataclasses.replace(c.llm, quant=True, act_int8=True),
         )
 
 
@@ -126,7 +158,7 @@ def _stage(times: Optional[Dict[str, float]], name: str, device: torch.device):
 
 
 class PSGv4:
-    """Holds the modules, tokenizer tables and the per-image program."""
+    """Holds the modules, tokenizer tables and the inference programs."""
 
     def __init__(self, cfg: PSGv4Config, seed: int = 0, device=None):
         """The PSG vocabulary (133 object, 56 relation classes) and its
@@ -164,7 +196,15 @@ class PSGv4:
         self.segmenter = build(lambda: OpenSeedSegmenter(c.segmenter), c.segmenter.dtype)
         self.head = build(lambda: RelationHeadV4(c.head, c.segmenter.mask_dim),
                           c.head.qformer.dtype)
-        self.llm = build(lambda: LlamaWithEmbeddings(c.llm), c.llm.dtype)
+        dense = dataclasses.replace(c.llm, quant=False, act_int8=False)
+        self.llm = build(lambda: LlamaWithEmbeddings(dense), c.llm.dtype)
+        if c.llm.quant:
+            state = quantize_llama(self.llm.state_dict())
+            with torch.device("meta"):
+                self.llm = LlamaWithEmbeddings(c.llm)
+            self.llm.load_state_dict(state, assign=True)
+            self.llm.eval().requires_grad_(False)
+            del state
         ce = torch.randn(len(OBJECT_CLASSES), c.segmenter.proj_dim,
                          generator=gen, device=self.device)
         self.class_embeds = ce / ce.norm(dim=-1, keepdim=True)
@@ -262,7 +302,7 @@ class PSGv4:
             eos_id=self.tokenizer.eos_id, pad_id=self.tokenizer.pad_id,
             early_exit=True, trip_budget=trip_budget)
 
-    # ---------------------------------------------------------- entry point
+    # --------------------------------------------------------- entry points
     def infer(self, image_u8, img_hw, trip_budget: Optional[int] = None,
               stage_times: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
         """Host entry: image [H, W, 3] 0-255 (numpy or tensor, the padded
@@ -272,21 +312,77 @@ class PSGv4:
         ``trip_budget``: runtime cap on decode steps (None = max_new_tokens).
         ``stage_times``: if a dict, receives per-stage wall ms (segmenter,
         fusion_select, head, decode), synchronizing the card around each."""
+        return self.infer_microbatch([image_u8], [img_hw], trip_budget, stage_times)[0]
+
+    def infer_microbatch(self, images, img_hws, trip_budget: Optional[int] = None,
+                         stage_times: Optional[Dict[str, float]] = None) -> List[Dict[str, Any]]:
+        """The deployment program (``_pipelined_impl``, psg_v4.py:707-729):
+        images [N, H, W, 3] and their valid (h, w) [N, 2] → one result dict
+        per image, as :meth:`infer` gives.
+
+        Segmenter, fusion/selection and the relation head run one image at a
+        time, so peak activation memory stays at one image's; the N images'
+        top-K prefixes then go through ONE prefill and greedy decode as a
+        flat [N·K] batch, which exits early only when all N·K sequences hit
+        EOS.  Every image's ``decode_steps`` is that joint trip count.
+        ``stage_times`` sums each stage over the images."""
         dev = self.device
-        image = torch.as_tensor(np.asarray(image_u8) if not torch.is_tensor(image_u8)
-                                else image_u8).to(dev)
-        with _stage(stage_times, "segmenter", dev):
-            seg = self.segment(image)
-        with _stage(stage_times, "fusion_select", dev):
-            sel = self.fuse_select(seg, img_hw)
-        with _stage(stage_times, "head", dev):
-            out, prefix, pmask = self.tail_pre(seg["mask_features"], *sel)
-        with _stage(stage_times, "decode", dev):
-            toks, scores, trips = self.tail_decode(prefix, pmask, trip_budget)
-        out["gen_tokens"], out["gen_scores"] = toks, scores
-        host = {k: v.cpu().numpy() for k, v in out.items()}
-        host["decode_trips"] = np.int32(trips)
-        return self.postprocess(host)
+        pre = []
+        for image_u8, img_hw in zip(images, img_hws):
+            image = torch.as_tensor(image_u8, device=dev)
+            with _stage(stage_times, "segmenter", dev):
+                seg = self.segment(image)
+            with _stage(stage_times, "fusion_select", dev):
+                sel = self.fuse_select(seg, img_hw)
+            with _stage(stage_times, "head", dev):
+                pre.append(self.tail_pre(seg["mask_features"], *sel))
+            del seg, sel
+        return self._decode_postprocess(pre, trip_budget, stage_times)
+
+    def infer_batch(self, images, img_hws,
+                    trip_budget: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Per-image :meth:`infer` over a batch → one result dict per image.
+        The JAX package vmaps the per-image program (psg_v4.py:659-686),
+        whose results equal per-image inference; on one card a loop is that
+        program.  The data-parallel mesh comes with the parallelism slice."""
+        return [self.infer(img, hw, trip_budget) for img, hw in zip(images, img_hws)]
+
+    def infer_gt(self, image_u8, gt_masks, gt_oids, gt_valid) -> Dict[str, Any]:
+        """Ground-truth-mask ablation (``_infer_gt_jit``, psg_v4.py:558-605):
+        the segmenter still runs (its ``mask_features`` feed the Q-Former)
+        but the GT masks replace fusion and selection.  gt_masks [M, H, W]
+        bool at the bucket's resolution; gt_oids [M] panoptic ids; gt_valid
+        [M] bool.  The pan map paints each pixel with the first valid mask
+        that covers it, 133 where none does."""
+        dev = self.device
+        seg = self.segment(torch.as_tensor(image_u8, device=dev))
+        masks = torch.as_tensor(gt_masks, device=dev).bool()
+        oids = torch.as_tensor(gt_oids, device=dev).to(torch.int32)
+        valid = torch.as_tensor(gt_valid, device=dev).bool()
+        masks4 = downsample_nearest(masks, seg["mask_features"].shape[:2]) & valid[:, None, None]
+        owned = masks & valid[:, None, None]
+        first = torch.argmax(owned.to(torch.uint8), dim=0)
+        pan = torch.where(owned.any(dim=0), oids[first], 133)
+        labels = (oids % INSTANCE_OFFSET).to(torch.int32)
+        pre = self.tail_pre(seg["mask_features"], masks4, valid, labels,
+                            torch.where(valid, oids, 0), valid.float(), pan)
+        return self._decode_postprocess([pre], None, None)[0]
+
+    def _decode_postprocess(self, pre, trip_budget, stage_times):
+        """``tail_pre`` results of N images → one prefill + decode over their
+        flattened [N·K] prefixes → N postprocessed result dicts."""
+        outs, prefixes, pmasks = zip(*pre)
+        K = prefixes[0].shape[0]
+        with _stage(stage_times, "decode", self.device):
+            toks, scores, trips = self.tail_decode(torch.cat(prefixes), torch.cat(pmasks),
+                                                   trip_budget)
+        results = []
+        for i, out in enumerate(outs):
+            out["gen_tokens"], out["gen_scores"] = toks[i * K:(i + 1) * K], scores[i * K:(i + 1) * K]
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            host["decode_trips"] = np.int32(trips)
+            results.append(self.postprocess(host))
+        return results
 
     # ---------------------------------------------------------- postprocess
     def postprocess(self, dev: Dict[str, np.ndarray]) -> Dict[str, Any]:

@@ -1,14 +1,16 @@
-"""Llama-family decoder, bf16 dense path (counterpart of
-``openpsg_tpu/models/llm/llama.py``): RMSNorm, rotate-half RoPE, grouped-
-query attention, SwiGLU.  A forward without a cache attends among its own
-tokens (prefill) and returns their (k, v); a forward with a cache reads it
-as read-only keys plus the current tokens' own keys, then writes those keys
-into the cache in place (the JAX version returns an updated copy)."""
+"""Llama-family decoder (counterpart of ``openpsg_tpu/models/llm/llama.py``):
+RMSNorm, rotate-half RoPE, grouped-query attention, SwiGLU; dense
+projections, or int8 ones (:class:`QDense`, ``LlamaConfig.quant``) with
+the optional int8-activation prefill (``act_int8``).  A forward without a
+cache attends among its own tokens (prefill) and returns their (k, v); a
+forward with a cache reads it as read-only keys plus the current tokens'
+own keys, then writes those keys into the cache in place (the JAX version
+returns an updated copy)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,6 +29,11 @@ class LlamaConfig:
     ffn_hidden: int = 11008
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    # int8 projections with per-output-channel float32 scales (QDense)
+    quant: bool = False
+    # with ``quant``: per-token int8 activations for products of at least
+    # QDense.ACT_INT8_MIN_ROWS rows (prefill); decode stays weight-only
+    act_int8: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
@@ -74,20 +81,106 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+# the projections QDense replaces under ``quant`` (JAX llama.py:165)
+QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+
+
+def _per_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127, correctly rounded on every device: CUDA divides by a host
+    scalar through its reciprocal, which can land one float32 step away."""
+    return t / torch.full_like(t, 127.0)
+
+
+def _weight_only_mm(x: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """x [M, K] times the int8 w_q [N, K] transposed, with w_q in x's type:
+    exact products summed and returned in float32 (the JAX einsum's
+    ``preferred_element_type=float32``; a bf16 product would round once
+    more before the scale)."""
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return x.float() @ w_q.float().t()
+    # the same sums on the card without widening the weights to float32;
+    # PyTorch's mm with out_dtype has no CPU kernel
+    return torch.mm(x, w_q.to(x.dtype).t(), out_dtype=torch.float32)
+
+
+class QDense(nn.Module):
+    """Int8 linear (counterpart of the JAX ``QDense``, llama.py:104-148):
+    ``weight_q`` int8 [out, in] (flax ``kernel_q`` transposed) and a float32
+    per-output-channel ``scale`` [out].
+
+    Weight-only: ``x @ weight_q`` in x's type with float32 sums, times
+    ``scale`` in float32, cast to ``dtype``.  With ``act_int8`` and at
+    least ``ACT_INT8_MIN_ROWS`` rows (the product of all leading dims of
+    x): per-token ``s_x = max(max|x|, 1e-6) / 127``, ``round(x / s_x)``
+    (half to even) clipped to ±127, an int8×int8→int32 product, then
+    ``(y · s_x) · scale``."""
+
+    ACT_INT8_MIN_ROWS = 256
+
+    def __init__(self, in_features: int, out_features: int, act_int8: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.act_int8, self.dtype = act_int8, dtype
+        self.weight_q = nn.Parameter(
+            torch.empty(out_features, in_features, dtype=torch.int8), requires_grad=False)
+        self.scale = nn.Parameter(
+            torch.empty(out_features, dtype=torch.float32), requires_grad=False)
+
+    def forward(self, x):
+        x2 = x.reshape(-1, x.shape[-1])
+        if self.act_int8 and x2.shape[0] >= self.ACT_INT8_MIN_ROWS:
+            xf = x2.float()
+            s_x = _per_127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6))
+            xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+            # on CUDA _int_mm needs more than 16 rows (here ≥ 256) and K, N
+            # multiples of 8 (true of every Llama width the configs use)
+            y = torch._int_mm(xq, self.weight_q.t()).float() * s_x * self.scale
+        else:
+            y = _weight_only_mm(x2, self.weight_q) * self.scale
+        return y.to(self.dtype).reshape(*x.shape[:-1], -1)
+
+
+def _dense(c: LlamaConfig, in_features: int, out_features: int) -> nn.Module:
+    if c.quant:
+        return QDense(in_features, out_features, act_int8=c.act_int8, dtype=c.dtype)
+    return nn.Linear(in_features, out_features, bias=False)
+
+
+@torch.no_grad()
+def quantize_llama(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """State dict of a dense LLM (``[out, in]`` weights) → that of the
+    ``quant=True`` LLM (counterpart of the JAX ``quantize_llama``,
+    llama.py:159-185): per-output-channel symmetric scales ``max|w| / 127``
+    over the input axis, floored at 1e-8, ``round(w / scale)`` (half to
+    even) clipped to ±127.  Embeddings and norms pass through."""
+    out = {}
+    for name, w in state.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "weight" and module.rpartition(".")[2] in QUANT_TARGETS:
+            w32 = w.float()
+            scale = torch.clamp(_per_127(w32.abs().amax(dim=1, keepdim=True)), min=1e-8)
+            out[f"{module}.weight_q"] = torch.clamp(
+                torch.round(w32 / scale), -127, 127).to(torch.int8)
+            out[f"{module}.scale"] = scale[:, 0]
+        else:
+            out[name] = w
+    return out
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, c: LlamaConfig):
         super().__init__()
         self.c = c
         hd = c.dim // c.n_heads
         self.attn_norm = RMSNorm(c.dim, c.norm_eps)
-        self.wq = nn.Linear(c.dim, c.n_heads * hd, bias=False)
-        self.wk = nn.Linear(c.dim, c.n_kv_heads * hd, bias=False)
-        self.wv = nn.Linear(c.dim, c.n_kv_heads * hd, bias=False)
-        self.wo = nn.Linear(c.n_heads * hd, c.dim, bias=False)
+        self.wq = _dense(c, c.dim, c.n_heads * hd)
+        self.wk = _dense(c, c.dim, c.n_kv_heads * hd)
+        self.wv = _dense(c, c.dim, c.n_kv_heads * hd)
+        self.wo = _dense(c, c.n_heads * hd, c.dim)
         self.ffn_norm = RMSNorm(c.dim, c.norm_eps)
-        self.w_gate = nn.Linear(c.dim, c.ffn_hidden, bias=False)
-        self.w_up = nn.Linear(c.dim, c.ffn_hidden, bias=False)
-        self.w_down = nn.Linear(c.ffn_hidden, c.dim, bias=False)
+        self.w_gate = _dense(c, c.dim, c.ffn_hidden)
+        self.w_up = _dense(c, c.dim, c.ffn_hidden)
+        self.w_down = _dense(c, c.ffn_hidden, c.dim)
 
     def forward(self, x, rot, masked_out, ck, cv):
         """x [B, L, D]; rot = rope_tables(positions); ck/cv [B, S, kv, hd]
@@ -122,7 +215,7 @@ class Llama(nn.Module):
         self.c = c
         self.layers = nn.ModuleList(LlamaBlock(c) for _ in range(c.n_layers))
         self.final_norm = RMSNorm(c.dim, c.norm_eps)
-        self.lm_head = nn.Linear(c.dim, c.vocab_size, bias=False)
+        self.lm_head = _dense(c, c.dim, c.vocab_size)
 
     def forward(self, input_embeds, attention_mask, positions,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

@@ -38,33 +38,40 @@ def ms_deform_attn(
         raise ValueError(f"points_per_level {points_per_level}")
 
     out = torch.zeros(B, nH, Lq, hd, dtype=torch.float32, device=value.device)
-    start = 0
-    for lvl, (h, w) in enumerate(spatial_shapes):
-        kl = kpl[lvl]
-        vl = value[:, start:start + h * w].permute(0, 2, 1, 3)   # [B,nH,hw,hd]
-        # quad row r = values at r, r+1, r+w, r+w+1 (wrapping within the
-        # level as jnp.roll does; wrapped corners get zero tent weight)
-        quad = torch.cat(
-            [vl, vl.roll(-1, 2), vl.roll(-w, 2), vl.roll(-(w + 1), 2)], dim=-1
-        )                                                         # [B,nH,hw,4hd]
-        loc = sampling_locations[:, :, :, lvl, :kl].float()      # [B,Lq,nH,kl,2]
-        x = loc[..., 0] * w - 0.5
-        y = loc[..., 1] * h - 0.5
-        bx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
-        by = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
-        fx0 = torch.clamp(1.0 - (x - bx).abs(), min=0.0)
-        fx1 = torch.clamp(1.0 - (x - (bx + 1)).abs(), min=0.0)
-        fy0 = torch.clamp(1.0 - (y - by).abs(), min=0.0)
-        fy1 = torch.clamp(1.0 - (y - (by + 1)).abs(), min=0.0)
-        aw = attention_weights[:, :, :, lvl, :kl].float()
-        cw = torch.stack(
-            [fx0 * fy0, fx1 * fy0, fx0 * fy1, fx1 * fy1], dim=-1
-        ) * aw[..., None]                                         # [B,Lq,nH,kl,4]
-        base = (by * w + bx).long()                               # [B,Lq,nH,kl]
-        idx = base.permute(0, 2, 1, 3).reshape(B, nH, Lq * kl, 1)
-        g = torch.gather(quad, 2, idx.expand(-1, -1, -1, 4 * hd))  # [B,nH,Lq*kl,4hd]
-        g = g.view(B, nH, Lq, kl, 4, hd).float()
-        cw = cw.permute(0, 2, 1, 3, 4)                            # [B,nH,Lq,kl,4]
+    for lvl in range(L):
+        quad, idx, cw = level_samples(value, spatial_shapes, sampling_locations,
+                                      attention_weights, lvl, kpl[lvl])
+        g = torch.gather(quad, 2, idx[..., None].expand(-1, -1, -1, 4 * hd))  # [B,nH,Lq*kl,4hd]
+        g = g.view(B, nH, Lq, kpl[lvl], 4, hd).float()
         out += torch.einsum("bhqkcd,bhqkc->bhqd", g, cw)
-        start += h * w
     return out.permute(0, 2, 1, 3).reshape(B, Lq, nH * hd).to(value.dtype)
+
+
+def level_samples(value, spatial_shapes, sampling_locations, attention_weights,
+                  lvl: int, kl: int):
+    """Level ``lvl``'s share of :func:`ms_deform_attn` for the first ``kl``
+    points → (quad [B, nH, h·w, 4·hd] in value's dtype, idx [B, nH, Lq·kl]
+    int64 quad rows, query-major then point, cw [B, nH, Lq, kl, 4] float32
+    corner × attention weights).  The level's sampling is the row gather
+    ``quad[b, h, idx[b, h]]`` (the op of ``ops/msda_gather.py``)."""
+    h, w = spatial_shapes[lvl]
+    start = sum(hh * ww for hh, ww in spatial_shapes[:lvl])
+    B, _, nH, _ = value.shape
+    Lq = sampling_locations.shape[1]
+    vl = value[:, start:start + h * w].permute(0, 2, 1, 3)   # [B,nH,hw,hd]
+    # quad row r = values at r, r+1, r+w, r+w+1 (wrapping within the
+    # level as jnp.roll does; wrapped corners get zero tent weight)
+    quad = torch.cat([vl, vl.roll(-1, 2), vl.roll(-w, 2), vl.roll(-(w + 1), 2)], dim=-1)
+    loc = sampling_locations[:, :, :, lvl, :kl].float()      # [B,Lq,nH,kl,2]
+    x = loc[..., 0] * w - 0.5
+    y = loc[..., 1] * h - 0.5
+    bx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
+    by = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
+    fx0 = torch.clamp(1.0 - (x - bx).abs(), min=0.0)
+    fx1 = torch.clamp(1.0 - (x - (bx + 1)).abs(), min=0.0)
+    fy0 = torch.clamp(1.0 - (y - by).abs(), min=0.0)
+    fy1 = torch.clamp(1.0 - (y - (by + 1)).abs(), min=0.0)
+    aw = attention_weights[:, :, :, lvl, :kl].float()
+    cw = torch.stack([fx0 * fy0, fx1 * fy0, fx0 * fy1, fx1 * fy1], dim=-1) * aw[..., None]
+    idx = (by * w + bx).long().permute(0, 2, 1, 3).reshape(B, nH, Lq * kl)
+    return quad, idx, cw.permute(0, 2, 1, 3, 4)

@@ -37,12 +37,14 @@ def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
 
 
 def downsample_nearest(idmap: torch.Tensor, out_hw) -> torch.Tensor:
-    """Nearest-neighbour resize of an integer id map [H, W] → [h, w]."""
-    H, W = idmap.shape
+    """Nearest-neighbour resize of an integer or boolean map [..., H, W] →
+    [..., h, w] (leading dims untouched, as ``jax.image.resize`` treats a
+    dim whose size does not change)."""
+    H, W = idmap.shape[-2:]
     h, w = out_hw
     out = idmap
     if h != H:
-        out = out[_nearest_index(H, h, idmap.device)]
+        out = out[..., _nearest_index(H, h, idmap.device), :]
     if w != W:
-        out = out[:, _nearest_index(W, w, idmap.device)]
+        out = out[..., _nearest_index(W, w, idmap.device)]
     return out

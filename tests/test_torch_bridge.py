@@ -1,6 +1,9 @@
 """The JAX → port parameter bridge on the tiny PSGv4 tree: every leaf is
 used exactly once, lands transformed, and a missing, extra or misshapen
-leaf is refused."""
+leaf is refused; the same for a tree whose LLM went through the JAX
+``quantize_llama`` (int8 ``kernel_q``, per-channel ``scale``)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +13,7 @@ import torch
 
 from openpsg_tpu.models.detectors.psg_v4 import PSGv4 as JaxPSGv4
 from openpsg_tpu.models.detectors.psg_v4 import PSGv4Config as JaxPSGv4Config
+from openpsg_tpu.models.llm.llama import quantize_llama
 from openpsg_tpu_torch import bridge
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 
@@ -99,3 +103,50 @@ class TestLayouts:
         norm.load_state_dict({"weight": torch.from_numpy(np.array(w))})
         got = norm(torch.from_numpy(x)).detach().numpy()
         np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def quantized(tiny):
+    params = dict(tiny[0])
+    params["llm"] = jax.tree_util.tree_map(np.asarray, quantize_llama(params["llm"]))
+    cfg = PSGv4Config.tiny_test()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, quant=True, act_int8=True))
+    model = PSGv4(cfg, seed=0, device="cpu")
+    report = bridge.load_jax_params(model, params)
+    return params, model, report
+
+
+class TestQuantizedTree:
+    def test_every_leaf_used_once(self, quantized):
+        params, model, report = quantized
+        tree = params["llm"]
+        expected = sum(arr.shape[0] if any(path[: len(k)] == k for k in bridge.SCANNED) else 1
+                       for path, arr in bridge._leaves(tree["params"], ("llm",)))
+        names = bridge.part_state_dict("llm", tree)
+        assert len(names) == expected
+        assert set(names) == set(model.llm.state_dict())
+        assert report["used"]["llm"] == sum(1 for _ in bridge._leaves(tree["params"]))
+
+    def test_int8_leaves_and_scales(self, quantized):
+        params, model, _ = quantized
+        sd = model.llm.state_dict()
+        layers = params["llm"]["params"]["core"]["layers"]
+        for i in range(layers["wq"]["kernel_q"].shape[0]):
+            wq = sd[f"core.layers.{i}.w_up.weight_q"]
+            assert wq.dtype == torch.int8
+            np.testing.assert_array_equal(wq.numpy(), layers["w_up"]["kernel_q"][i].T)
+            scale = sd[f"core.layers.{i}.w_up.scale"]
+            assert scale.dtype == torch.float32
+            np.testing.assert_array_equal(scale.numpy(), layers["w_up"]["scale"][i])
+            np.testing.assert_array_equal(sd[f"core.layers.{i}.attn_norm.weight"].numpy(),
+                                          layers["attn_norm"]["weight"][i])
+        head = params["llm"]["params"]["core"]["lm_head"]
+        np.testing.assert_array_equal(sd["core.lm_head.weight_q"].numpy(), head["kernel_q"].T)
+        np.testing.assert_array_equal(sd["core.lm_head.scale"].numpy(), head["scale"])
+        assert not any(n.endswith(".weight") and "w_up" in n for n in sd)
+
+    def test_norm_scale_still_becomes_weight(self, quantized):
+        params, model, _ = quantized
+        np.testing.assert_array_equal(
+            model.segmenter.state_dict()["backbone.stage0_block0.norm1.weight"].numpy(),
+            params["segmenter"]["params"]["backbone"]["stage0_block0"]["norm1"]["scale"])

@@ -4,6 +4,7 @@ Inputs come from numpy with a seed and go through both.  Tolerances:
 float32 at atol=rtol=1e-4 unless stated; boolean/integer outputs exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +16,11 @@ from openpsg_tpu.ops.pallas.flash_cross_attn import (
     flash_shared_kv_cross_attn as jflash,
     shared_kv_cross_attn_reference as jref,
 )
+from openpsg_tpu.ops.pallas.msda_gather import sparse_row_gather as jgather
 from openpsg_tpu_torch.ops import flash_cross_attn as fca
 from openpsg_tpu_torch.ops import mask_ops
-from openpsg_tpu_torch.ops.deform_attn import ms_deform_attn
+from openpsg_tpu_torch.ops import msda_gather
+from openpsg_tpu_torch.ops.deform_attn import level_samples, ms_deform_attn
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -51,6 +54,15 @@ class TestMaskOps:
         idm = np.random.default_rng(2).integers(0, 3000, hw).astype(np.int32)
         want = np.asarray(jmask.downsample_nearest(jnp.asarray(idm), out))
         got = mask_ops.downsample_nearest(torch.from_numpy(idm), out).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    def test_downsample_nearest_keeps_leading_dims(self):
+        """A stack of boolean masks resizes as jax.image.resize 'nearest'
+        does over [M, H, W] (the GT-mask path, psg_v4.py:580-582)."""
+        m = np.random.default_rng(3).random((5, 64, 60)) < 0.5
+        want = np.asarray(jax.image.resize(jnp.asarray(m, jnp.int32), (5, 16, 15),
+                                           method="nearest")).astype(bool)
+        got = mask_ops.downsample_nearest(torch.from_numpy(m), (16, 15)).numpy()
         np.testing.assert_array_equal(got, want)
 
 
@@ -154,6 +166,111 @@ class TestSharedKVAttention:
         got = fca.flash_shared_kv_cross_attn(q, k, v, mask)
         assert fca.flash_shared_kv_cross_attn.launches == before
         torch.testing.assert_close(got, fca.shared_kv_cross_attn_plain(q, k, v, mask))
+
+
+def _gather_inputs(seed, nH, HW, C, S, lo=0, hi=None):
+    rng = np.random.default_rng(seed)
+    quad = rng.normal(size=(nH, HW, C)).astype(np.float32)
+    idx = rng.integers(lo, HW if hi is None else hi, (nH, S)).astype(np.int32)
+    return quad, idx
+
+
+def _local_gather_inputs():
+    """Raster-local indices, the deformable regime (test_pallas_kernels.py:22-32)."""
+    rng = np.random.default_rng(2)
+    nH, HW, C, S = 2, 2048, 128, 1024
+    quad = rng.normal(size=(nH, HW, C)).astype(np.float32)
+    base = np.arange(S) * 2 % HW
+    idx = np.clip(base + rng.integers(-32, 32, S), 0, HW - 1)
+    return quad, np.tile(idx[None], (nH, 1)).astype(np.int32)
+
+
+# (name, inputs, tq, tv): the cases of test_pallas_kernels.py, then
+# out-of-range indices (negative, in the padding rows HW..HWpad, and past
+# HWpad) with ragged S and HW, and the tiny segmenter's row width C=16
+GATHER_CASES = [
+    ("take_0", lambda: _gather_inputs(0, 3, 1000, 128, 700), 128, 256),
+    ("take_1", lambda: _gather_inputs(1, 3, 300, 128, 513), 128, 256),
+    ("local", _local_gather_inputs, 256, 256),
+    ("out_of_range", lambda: _gather_inputs(3, 3, 300, 16, 513, lo=-600, hi=1200), 128, 256),
+    ("ragged_default_tiles", lambda: _gather_inputs(4, 2, 700, 128, 1100, lo=-5, hi=705),
+     512, 512),
+]
+
+
+class TestSparseRowGather:
+    """The plain gather against the Pallas kernel in interpret mode,
+    exactly: the one-hot product adds each row to zeros, so it is exact in
+    float32, and bf16 rows convert to float32 exactly."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("name,make,tq,tv", GATHER_CASES, ids=[c[0] for c in GATHER_CASES])
+    def test_plain_matches_pallas(self, name, make, tq, tv, dtype):
+        quad, idx = make()
+        jquad = jnp.asarray(quad, dtype)
+        want = np.asarray(jgather(jquad, jnp.asarray(idx), tq=tq, tv=tv, interpret=True))
+        tquad = torch.from_numpy(np.array(jquad.astype(jnp.float32))).to(getattr(torch, dtype))
+        got = msda_gather.sparse_row_gather_plain(tquad, torch.from_numpy(idx))
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_out_of_range_rows_are_zero(self):
+        quad, idx = _gather_inputs(5, 2, 40, 16, 200, lo=-100, hi=140)
+        got = msda_gather.sparse_row_gather_plain(*_t(quad, idx)).numpy()
+        outside = (idx < 0) | (idx >= 40)
+        assert outside.any() and (~outside).any()
+        np.testing.assert_array_equal(got[outside], 0.0)
+        h = np.nonzero(~outside)
+        np.testing.assert_array_equal(got[~outside], quad[h[0], idx[~outside]])
+
+    def test_is_the_gather_of_ms_deform_attn(self):
+        """Each level of ms_deform_attn is this gather on ``level_samples``'
+        quad table and row index, weighted by its corner weights."""
+        shapes = TestMSDeformAttn.SHAPES
+        v, loc, aw = _msda_inputs(7, shapes)
+        want = np.asarray(_ms_deform_attn_flat(jnp.asarray(v), shapes, jnp.asarray(loc),
+                                               jnp.asarray(aw)))
+        nH, hd = v.shape[2:]
+        Lq, K = loc.shape[1], loc.shape[4]
+        out = torch.zeros(Lq, nH, hd)
+        for lvl in range(len(shapes)):
+            quad, idx, cw = level_samples(*_t(v), shapes, *_t(loc, aw), lvl, K)
+            g = msda_gather.sparse_row_gather(quad[0], idx[0].int())
+            out += torch.einsum("hqkcd,hqkc->qhd", g.view(nH, Lq, K, 4, hd), cw[0])
+        np.testing.assert_allclose(out.reshape(1, Lq, nH * hd).numpy(), want, **TOL)
+
+    def test_cpu_wrapper_takes_plain_path_and_counts_nothing(self):
+        quad, idx = _t(*_gather_inputs(6, 2, 50, 16, 30, lo=-3, hi=60))
+        before = msda_gather.sparse_row_gather.launches
+        got = msda_gather.sparse_row_gather(quad, idx)
+        assert msda_gather.sparse_row_gather.launches == before
+        torch.testing.assert_close(got, msda_gather.sparse_row_gather_plain(quad, idx),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+class TestSparseRowGatherOnCard:
+    """The CUDA gather kernel against its plain version, bitwise (needs the card)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("name,make,tq,tv", GATHER_CASES, ids=[c[0] for c in GATHER_CASES])
+    def test_kernel_matches_plain(self, cuda_device, name, make, tq, tv, dtype):
+        quad, idx = (t.to(cuda_device) for t in _t(*make()))
+        quad = quad.to(dtype)
+        before = msda_gather.sparse_row_gather.launches
+        got = msda_gather.sparse_row_gather(quad, idx)
+        torch.cuda.synchronize()
+        assert msda_gather.sparse_row_gather.launches == before + 1
+        assert torch.equal(got, msda_gather.sparse_row_gather_plain(quad, idx))
+
+    def test_kernel_rejects_unsupported_input(self, cuda_device):
+        quad, idx = (t.to(cuda_device) for t in _t(*_gather_inputs(7, 2, 30, 16, 10)))
+        with pytest.raises(ValueError):
+            msda_gather.sparse_row_gather(quad[:, :, :12].bfloat16().contiguous(), idx)
+        with pytest.raises(TypeError):
+            msda_gather.sparse_row_gather(quad.half(), idx)
+        with pytest.raises(TypeError):
+            msda_gather.sparse_row_gather(quad, idx.long())
 
 
 @pytest.mark.cuda

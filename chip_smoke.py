@@ -6,21 +6,28 @@
 Phases, each fatal on failure:
   1. device line (``nvidia-smi`` name and power limit, torch and CUDA);
   2. build both CUDA kernels from ``csrc/`` (one nvcc each, started
-     together from two threads) and log their registers and spills;
+     together from two threads) and log their registers and spills, and
+     the shared-KV kernel's hopper variant's registers, shared memory and
+     local memory as the CUDA runtime reports them;
   3. each kernel against its plain PyTorch version: the shared-KV
-     attention at the main-path shape, the row gather bitwise on seeded
-     cases (float32 and bf16, ragged sizes, out-of-range indices, C = 128
-     and 16);
+     attention at the main-path shape (float32: the simple variant; bf16:
+     the hopper variant), with fully masked rows and 64-patch chunks, and
+     at the hopper variant's edges at the main width (NP = 1 and 1000,
+     Lq = 1, P at the cap and one past it), each case holding the variant's
+     launch count; the row gather bitwise on seeded cases (float32 and
+     bf16, ragged sizes, out-of-range indices, C = 128 and 16);
   4. the per-image path at full ``baseline_v4_ov`` width (bf16 LLM):
      ``PSGv4.infer`` on seeded 1344² images with seeded random weights,
-     launch counts read around exactly that run; plus the tiny config on
-     the card against the CPU path, with its float32 LLM through ``infer``
-     and with an int8 bf16 LLM through ``infer_microbatch`` (3 images,
-     int8-activation prefill);
+     launch counts (per variant) read around exactly that run; plus the
+     tiny config on the card against the CPU path, with its float32 LLM
+     through ``infer`` and with an int8 bf16 LLM through
+     ``infer_microbatch`` (3 images, int8-activation prefill);
   5. the kernels' times, the plain versions', the library's and the bound
-     on the main path's own inputs (image 0, CUDA events, median of 50 with
-     its interquartile range): the shared-KV kernel on the first Q-Former
-     layer's inputs, the gather on level 0 of the first pixel-decoder
+     on the main path's own inputs (image 0, CUDA events around 10
+     back-to-back calls, median per call with its interquartile range): the shared-KV kernel on the first Q-Former
+     layer's inputs (its hopper variant, the simple variant called
+     explicitly, the plain version and SDPA in two formulations, timed in
+     turns), the gather on level 0 of the first pixel-decoder
      encoder layer (quad table and row index rebuilt by
      ``ops/deform_attn.level_samples``); then the full-width head with the
      plain attention forced (test-only switch) against the kernel path on
@@ -94,9 +101,13 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warmup=5, reps=50) -> tuple:
-    """``reps`` CUDA-event timings of ``fn()`` after warm-up → (median, 25th
-    percentile, 75th percentile) in ms."""
+def time_ms(fn, warmup=5, reps=50, batch=10, raw=False):
+    """``reps`` CUDA-event timings of ``batch`` back-to-back calls of
+    ``fn()``, each divided by ``batch``, after warm-up → (median, 25th
+    percentile, 75th percentile) in ms per call, or the list of times with
+    ``raw``.  Back to back, the host enqueues the next call while the card
+    runs this one, so a call's host work is hidden where it is shorter than
+    the card's."""
     import torch
 
     for _ in range(warmup):
@@ -107,10 +118,13 @@ def time_ms(fn, warmup=5, reps=50) -> tuple:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
+    if raw:
+        return times
     q1, _, q3 = statistics.quantiles(times, n=4)
     return statistics.median(times), q1, q3
 
@@ -132,7 +146,9 @@ def skv_bound_ms(q, k, mask) -> tuple:
 
 
 def phase_kernel(torch, results):
-    """Phase 3: the shared-KV attention kernel against its plain version."""
+    """Phase 3: the shared-KV attention kernel against its plain version,
+    each case also holding the launch count of the variant
+    ``kernel_variant`` picks for it."""
     from openpsg_tpu_torch.ops import flash_cross_attn as fca
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -145,59 +161,114 @@ def phase_kernel(torch, results):
         return q, k, v, mask
 
     def check(name, q, k, v, mask, tol):
+        variant = fca.kernel_variant(q.dtype, q.shape[-1], k.shape[1])
+        before = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
         got = fca.flash_shared_kv_cross_attn(q, k, v, mask)
         torch.cuda.synchronize()
+        after = fca.flash_shared_kv_cross_attn.launches_by_variant
+        added = {n: after[n] - before[n] for n in after}
         g = fca.guard_empty_mask(mask)
         want = fca.shared_kv_cross_attn_plain(q.float(), k.float(), v.float(), g)
         err = float((got.float() - want).abs().max())
-        ok = err <= tol and bool(torch.isfinite(got).all())
-        log(f"[kernel] {name}: max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
+        ok = (err <= tol and bool(torch.isfinite(got).all())
+              and added == {n: int(n == variant) for n in after})
+        log(f"[kernel] {name} ({variant}): max_abs_err={err:.3e} tol={tol:g} "
+            f"launches {added} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with plain on {name}")
         return err
 
     main = dict(NP=1024, H=12, Lq=33, hd=64, P=441)
+    errs = []
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         tag = str(dtype).split(".")[-1]
         q, k, v, mask = data(dtype=dtype, **main)
-        err = check(f"{tag} main shape random mask", q, k, v, mask, tol)
-        if dtype == torch.bfloat16:
-            results["max_abs_err"] = err
+        e = [check(f"{tag} main shape random mask", q, k, v, mask, tol)]
         m2 = mask.clone()
         m2[::7] = False                      # fully masked rows (guarded)
-        check(f"{tag} fully masked rows", q, k, v, m2, tol)
+        e.append(check(f"{tag} fully masked rows", q, k, v, m2, tol))
         m3 = mask.clone()
         m3[:, 64:128] = False                # one whole 64-patch chunk
         m3[1::2, :64] = False                # ... and the first chunk on odd pairs
-        check(f"{tag} fully masked 64-patch chunks", q, k, v, m3, tol)
+        e.append(check(f"{tag} fully masked 64-patch chunks", q, k, v, m3, tol))
         q4, k4, v4, mk4 = data(NP=1000, H=12, Lq=33, hd=64, P=441, dtype=dtype)
-        check(f"{tag} NP=1000 (ragged row tile)", q4, k4, v4, mk4, tol)
+        e.append(check(f"{tag} NP=1000 (ragged row tile)", q4, k4, v4, mk4, tol))
         for hd, P in ((16, 40), (64, 130)):
-            check(f"{tag} small hd={hd} P={P}", *data(6, 2, 5, hd, P, dtype), tol)
+            e.append(check(f"{tag} small hd={hd} P={P}", *data(6, 2, 5, hd, P, dtype), tol))
+        if dtype == torch.bfloat16:
+            errs += e
+    cap = fca.HOPPER_MAX_P
+    edges = (("NP=1 (one pair: 63 empty tile rows)", dict(main, NP=1)),
+             ("Lq=1", dict(main, Lq=1)),
+             (f"P={cap} (the cap)", dict(main, NP=256, P=cap)),
+             (f"P={cap + 1} (past the cap)", dict(main, NP=256, P=cap + 1)))
+    for name, shape in edges:
+        errs.append(check(f"bfloat16 {name}", *data(dtype=torch.bfloat16, **shape), TOL_BF16))
+    results["max_abs_err"] = max(errs)
+
+
+def time_turns(runs, reps=25) -> dict:
+    """Each of ``runs`` ({key: fn}) timed ``reps`` times in the given order,
+    then ``reps`` times in the reverse order (so drift hits all alike) →
+    {key: (median, 25th percentile, 75th percentile)} in ms."""
+    times = {key: [] for key in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            times[key] += time_ms(runs[key], reps=reps, raw=True)
+    out = {}
+    for key, t in times.items():
+        q1, _, q3 = statistics.quantiles(t, n=4)
+        out[key] = (statistics.median(t), q1, q3)
+    return out
 
 
 def time_kernel(torch, fca, q, k, v, mask, results):
-    """Kernel, plain and library times (each the median of 50 runs with its
-    interquartile range) and the bound, on these inputs, into ``results``."""
+    """Times on these inputs, in turns (:func:`time_turns`): the kernel (the
+    variant the wrapper picks), the simple variant called explicitly, the
+    plain version, and SDPA in two formulations — per pair on K/V expanded
+    with stride 0, and in one call on q as [1, H, NP*Lq, hd] rows against
+    [1, H, P, hd] with the pair mask expanded to rows (layouts prepared
+    outside the timed call).  ``library_ms`` is the faster SDPA; the other
+    is logged beside it.  Plus the bound."""
     import torch.nn.functional as F
 
     g = fca.guard_empty_mask(mask)
-    NP = q.shape[0]
+    NP, H, Lq, hd = q.shape
+    P = k.shape[1]
     ke, ve = k[None].expand(NP, -1, -1, -1), v[None].expand(NP, -1, -1, -1)
     am = g[:, None, None, :]
+    q1 = q.transpose(0, 1).reshape(1, H, NP * Lq, hd)
+    m1 = g[:, None, :].expand(NP, Lq, P).reshape(1, 1, NP * Lq, P)
+    one_call = F.scaled_dot_product_attention(q1, k[None], v[None], attn_mask=m1)
+    want = fca.shared_kv_cross_attn_plain(q, k, v, g)
+    sdpa_err = float((one_call.view(H, NP, Lq, hd).transpose(0, 1).float()
+                      - want.float()).abs().max())
+    del one_call, want
+    results["variant"] = fca.kernel_variant(q.dtype, hd, P)
     runs = {
         "ms": lambda: fca.flash_shared_kv_cross_attn(q, k, v, g),
+        "simple_ms": lambda: fca.flash_shared_kv_cross_attn(q, k, v, g, variant="simple"),
         "plain_ms": lambda: fca.shared_kv_cross_attn_plain(q, k, v, g),
-        "library_ms": lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=am),
+        "sdpa_per_pair_ms": lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=am),
+        "sdpa_one_call_ms": lambda: F.scaled_dot_product_attention(
+            q1, k[None], v[None], attn_mask=m1),
     }
     text = []
-    for key, fn in runs.items():
-        results[key], q1, q3 = time_ms(fn)
-        text.append(f"{key} {results[key]:.4f} (IQR {q1:.4f}-{q3:.4f})")
+    for key, (med, lo, hi) in time_turns(runs).items():
+        results[key] = med
+        text.append(f"{key} {med:.4f} (IQR {lo:.4f}-{hi:.4f})")
+    sdpa = {"SDPA per pair": results.pop("sdpa_per_pair_ms"),
+            "SDPA one call": results.pop("sdpa_one_call_ms")}
+    best = min(sdpa, key=sdpa.get)
+    results["library"], results["library_ms"] = best, sdpa[best]
+    (other,) = set(sdpa) - {best}
+    results["library_other"], results["library_other_ms"] = other, sdpa[other]
     results["bound_ms"], results["bound_by"] = skv_bound_ms(q, k, g)
     log(f"[kernel] inputs {tuple(q.shape)} {q.dtype} mask density "
         f"{float(g.float().mean()):.3f}: " + ", ".join(text)
-        + f"; library = SDPA; bound_ms {results['bound_ms']:.4f} ({results['bound_by']})")
+        + f"; ms = the {results['variant']} variant; library = {best} (SDPA one call vs "
+        f"plain max_abs_err {sdpa_err:.3e}); bound_ms {results['bound_ms']:.4f} "
+        f"({results['bound_by']}); {results['bound_ms'] / results['ms']:.1%} of the bound")
 
 
 def phase_tiny_vs_cpu(torch):
@@ -253,6 +324,14 @@ def phase_tiny_vs_cpu(torch):
     compare_runs(torch, "tiny", per_image(torch, a), per_image(torch, b))
 
 
+def check_variants(by_variant, n_images):
+    """The main path launches the shared-KV kernel's hopper variant twice
+    per image (two Q-Former layers) and its simple variant never."""
+    want = {"simple": 0, "hopper": 2 * n_images}
+    if by_variant != want:
+        raise AssertionError(f"expected shared-KV launches {want}, saw {by_variant}")
+
+
 def check_result(res, hw):
     import numpy as np
 
@@ -299,13 +378,19 @@ def main() -> int:
     log(f"[build] {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s (in parallel)")
     for name in kernels:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error", "wgmma")):
                 log(f"[build] {name}: {line.strip()}")
+    attrs = fca.hopper_kernel_attrs()
+    log(f"[build] flash_shared_kv_cross_attn hopper variant as built: {attrs['registers']} "
+        f"registers, {attrs['smem_bytes']} bytes of shared memory per CTA, "
+        f"{attrs['local_bytes']} bytes of local memory per thread")
 
     # ---- 3. kernels against their plain versions
     skv = {"name": "flash_shared_kv_cross_attn", "route": "cuda",
            "source": "openpsg_tpu_torch/csrc/flash_shared_kv_cross_attn.cu",
-           "replaces": "openpsg_tpu/ops/pallas/flash_cross_attn.py:80"}
+           "replaces": "openpsg_tpu/ops/pallas/flash_cross_attn.py:80",
+           "hopper_registers": attrs["registers"], "hopper_smem_bytes": attrs["smem_bytes"],
+           "hopper_local_bytes": attrs["local_bytes"]}
     gat = {"name": "sparse_row_gather", "route": "cuda",
            "source": "openpsg_tpu_torch/csrc/sparse_row_gather.cu",
            "replaces": "openpsg_tpu/ops/pallas/msda_gather.py:70",
@@ -332,7 +417,7 @@ def main() -> int:
     model.infer(images[0], hws[0])     # warm-up (cuDNN / cuBLAS plans), not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fca.flash_shared_kv_cross_attn.launches = 0
+    fca.reset_launches()
     mg.sparse_row_gather.launches = 0
     results = []
     for i, (img, hw) in enumerate(zip(images, hws)):
@@ -346,13 +431,14 @@ def main() -> int:
             + f"; objects {len(res['rel_results']['object_id_list'])}, relations "
             f"{len(res['rel_results']['relation'])}, decode_trips {res['decode_steps']}")
     launches = fca.flash_shared_kv_cross_attn.launches
+    by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
     skv["launches_by_path"] = {"infer": launches}
+    skv["launches_by_variant"] = {"infer": by_variant}
     gat["launches_by_path"] = {"infer": mg.sparse_row_gather.launches}
     log(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"flash_shared_kv_cross_attn launches {launches} for {len(images)} images; "
-        f"sparse_row_gather launches {mg.sparse_row_gather.launches}")
-    if launches != 2 * len(images):
-        raise AssertionError(f"expected {2 * len(images)} kernel launches, saw {launches}")
+        f"flash_shared_kv_cross_attn launches {launches} for {len(images)} images "
+        f"({by_variant}); sparse_row_gather launches {mg.sparse_row_gather.launches}")
+    check_variants(by_variant, len(images))
     for res in results:
         check_result(res, (H, W))
 
@@ -378,6 +464,8 @@ def main() -> int:
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             assert key in k, key
+    for key in ("variant", "simple_ms", "library_other_ms", "hopper_registers"):
+        assert key in skv, key
     log(json.dumps({"kernels": [skv, gat]}))
     log(smi)
     return 0
@@ -601,7 +689,7 @@ def phase_deployment(torch, skv, gat):
     model.infer_microbatch(images, hws)      # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fca.flash_shared_kv_cross_attn.launches = 0
+    fca.reset_launches()
     mg.sparse_row_gather.launches = 0
     st = {}
     with recorded(model) as mb:
@@ -609,15 +697,17 @@ def phase_deployment(torch, skv, gat):
         res = model.infer_microbatch(images, hws, stage_times=st)
         wall = (time.perf_counter() - t0) * 1e3
     launches = fca.flash_shared_kv_cross_attn.launches
+    by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
     skv["launches_by_path"]["infer_microbatch"] = launches
+    skv["launches_by_variant"]["infer_microbatch"] = by_variant
     gat["launches_by_path"]["infer_microbatch"] = mg.sparse_row_gather.launches
     log(f"[deploy] infer_microbatch of {N} images: total {wall:.1f} ms, {wall / N:.1f} "
         "ms/image; per image " + ", ".join(f"{k} {v / N:.1f} ms" for k, v in st.items())
         + f"; decode_trips {res[0]['decode_steps']} (joint); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_shared_kv_cross_attn "
-        f"launches {launches}; sparse_row_gather launches {mg.sparse_row_gather.launches}")
-    if launches != 2 * N:
-        raise AssertionError(f"expected {2 * N} kernel launches, saw {launches}")
+        f"launches {launches} ({by_variant}); sparse_row_gather launches "
+        f"{mg.sparse_row_gather.launches}")
+    check_variants(by_variant, N)
     for r in res:
         check_result(r, (H, W))
         assert r["decode_steps"] == res[0]["decode_steps"]

@@ -7,7 +7,12 @@ image-patch keys/values, restricted by a per-pair boolean patch mask.
 * :func:`flash_shared_kv_cross_attn` — the wrapper.  On a CUDA tensor it
   launches the hand-written kernel ``csrc/flash_shared_kv_cross_attn.cu``
   (or raises); on a CPU tensor it runs :func:`shared_kv_cross_attn_plain`.
-  ``flash_shared_kv_cross_attn.launches`` counts kernel launches.
+  The kernel has two variants, chosen by shape (:func:`kernel_variant`):
+  ``"hopper"`` (wgmma/TMA, K/V resident in shared memory) for bf16, hd 64
+  and P ≤ :data:`HOPPER_MAX_P`, the main path's case; ``"simple"`` for the
+  rest (float32, hd 16, longer patch sequences).
+  ``flash_shared_kv_cross_attn.launches`` counts kernel launches and
+  ``.launches_by_variant`` splits them by variant.
 * :func:`shared_kv_cross_attn_plain` — einsum, softmax, einsum, as the JAX
   reference (flash_cross_attn.py:139-147).
 
@@ -19,6 +24,7 @@ version, so the wrapper first sets such rows to all-true
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,6 +32,17 @@ from openpsg_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64)  # the tiny and the baseline_v4_ov Q-Former
+VARIANTS = ("simple", "hopper")  # the kernel's variant codes 0 and 1
+HOPPER_MAX_P = 448  # patches the hopper variant keeps resident (kMaxP in the source)
+_MASK_WORDS = 16  # the hopper variant's packed mask: 32-bit words per pair (kWords)
+
+
+def kernel_variant(dtype: torch.dtype, hd: int, P: int) -> str:
+    """The kernel variant for these inputs: ``"hopper"`` for bf16, hd 64
+    and at most :data:`HOPPER_MAX_P` patches, else ``"simple"``."""
+    if dtype == torch.bfloat16 and hd == 64 and P <= HOPPER_MAX_P:
+        return "hopper"
+    return "simple"
 
 
 def guard_empty_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -66,34 +83,71 @@ def _check(q, k, v, mask):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(q, k, v, mask):
+@functools.lru_cache(maxsize=None)
+def _library():
     lib = _build.library("flash_shared_kv_cross_attn")
-    fn = lib.openpsg_flash_skv_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.openpsg_flash_skv_forward.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.openpsg_flash_skv_forward.restype = ctypes.c_int
+    lib.openpsg_flash_skv_hopper_attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.openpsg_flash_skv_hopper_attrs.restype = ctypes.c_int
+    return lib
+
+
+def _launch(q, k, v, mask, variant):
+    fn = _library().openpsg_flash_skv_forward
     NP, H, Lq, hd = q.shape
+    P = k.shape[1]
     out = torch.empty_like(q)
+    bits = None
+    if variant == "hopper":  # scratch for the mask packed into bits
+        bits = torch.empty(NP, _MASK_WORDS, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), NP, H, Lq, k.shape[1], hd,
-                 _DTYPE_CODES[q.dtype], stream)
+                 out.data_ptr(), 0 if bits is None else bits.data_ptr(), NP, H, Lq, P, hd,
+                 _DTYPE_CODES[q.dtype], VARIANTS.index(variant), stream)
     if err != 0:
-        raise RuntimeError(f"flash_shared_kv_cross_attn launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"flash_shared_kv_cross_attn ({variant}) launch failed: CUDA error {err}")
     flash_shared_kv_cross_attn.launches += 1
+    flash_shared_kv_cross_attn.launches_by_variant[variant] += 1
     return out
 
 
-def flash_shared_kv_cross_attn(q, k, v, mask):
+def hopper_kernel_attrs() -> dict:
+    """The built hopper kernel's registers per thread, shared memory per
+    block and local (spill) memory per thread, from the CUDA runtime."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _library().openpsg_flash_skv_hopper_attrs(*(ctypes.byref(x) for x in vals))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return dict(zip(("registers", "smem_bytes", "local_bytes"), (x.value for x in vals)))
+
+
+def reset_launches() -> None:
+    flash_shared_kv_cross_attn.launches = 0
+    flash_shared_kv_cross_attn.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def flash_shared_kv_cross_attn(q, k, v, mask, variant=None):
     """q [NP, H, Lq, hd]; k, v [H, P, hd] (shared by all pairs); mask
     [NP, P] bool → [NP, H, Lq, hd] in v's dtype.  Empty mask rows are
-    guarded first.  CUDA tensors go to the kernel; CPU tensors to the plain
-    version."""
+    guarded first.  CUDA tensors go to the kernel variant
+    :func:`kernel_variant` picks (``variant`` names one instead; the hopper
+    variant only where :func:`kernel_variant` allows it); CPU tensors to
+    the plain version."""
     mask = guard_empty_mask(mask)
     if q.device.type == "cpu":
         return shared_kv_cross_attn_plain(q, k, v, mask)
     _check(q, k, v, mask)
-    return _launch(q, k, v, mask)
+    auto = kernel_variant(q.dtype, q.shape[-1], k.shape[1])
+    if variant is None:
+        variant = auto
+    elif variant not in VARIANTS or (variant == "hopper" and auto != "hopper"):
+        raise ValueError(f"variant {variant!r} does not take {q.dtype}, hd {q.shape[-1]}, "
+                         f"P {k.shape[1]}")
+    return _launch(q, k, v, mask, variant)
 
 
-flash_shared_kv_cross_attn.launches = 0
+reset_launches()

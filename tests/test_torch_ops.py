@@ -4,6 +4,9 @@ Inputs come from numpy with a seed and go through both.  Tolerances:
 float32 at atol=rtol=1e-4 unless stated; boolean/integer outputs exact.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,9 +166,58 @@ class TestSharedKVAttention:
     def test_cpu_wrapper_takes_plain_path_and_counts_nothing(self):
         q, k, v, mask = _t(*_skv(4, 3, 2, 4, 16, 20))
         before = fca.flash_shared_kv_cross_attn.launches
+        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
         got = fca.flash_shared_kv_cross_attn(q, k, v, mask)
         assert fca.flash_shared_kv_cross_attn.launches == before
+        assert fca.flash_shared_kv_cross_attn.launches_by_variant == by_variant
         torch.testing.assert_close(got, fca.shared_kv_cross_attn_plain(q, k, v, mask))
+
+    def test_cpu_wrapper_counts_no_hopper_launch(self):
+        """bf16, hd 64: the hopper variant's inputs on the card, the plain
+        path here, with no launch of either variant counted."""
+        q, k, v, mask = _t(*_skv(8, 3, 2, 5, 64, 70))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        assert fca.kernel_variant(q.dtype, 64, 70) == "hopper"
+        before = fca.flash_shared_kv_cross_attn.launches
+        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        got = fca.flash_shared_kv_cross_attn(q, k, v, mask)
+        assert fca.flash_shared_kv_cross_attn.launches == before
+        assert fca.flash_shared_kv_cross_attn.launches_by_variant == by_variant
+        torch.testing.assert_close(got, fca.shared_kv_cross_attn_plain(q, k, v, mask))
+
+
+# (NP, Lq, P, dtype, hd, variant): the main path's shape and the edges of
+# the hopper variant (one pair, a ragged last pair tile, Lq 1, P at the cap
+# and one past it), then what only the simple variant takes
+VARIANT_CASES = [
+    (1024, 33, 441, torch.bfloat16, 64, "hopper"),
+    (1, 33, 441, torch.bfloat16, 64, "hopper"),
+    (1000, 33, 441, torch.bfloat16, 64, "hopper"),
+    (64, 1, 441, torch.bfloat16, 64, "hopper"),
+    (130, 33, fca.HOPPER_MAX_P, torch.bfloat16, 64, "hopper"),
+    (130, 33, fca.HOPPER_MAX_P + 1, torch.bfloat16, 64, "simple"),
+    (1024, 33, 441, torch.float32, 64, "simple"),
+    (6, 5, 40, torch.bfloat16, 16, "simple"),
+    (6, 5, 40, torch.float32, 16, "simple"),
+]
+
+
+class TestKernelVariant:
+    @pytest.mark.parametrize("NP,Lq,P,dtype,hd,variant", VARIANT_CASES)
+    def test_kernel_variant(self, NP, Lq, P, dtype, hd, variant):
+        assert fca.kernel_variant(dtype, hd, P) == variant
+
+    def test_cap_matches_the_source(self):
+        src = (Path(fca.__file__).parents[1] / "csrc" / "flash_shared_kv_cross_attn.cu").read_text()
+        assert re.search(r"constexpr int kMaxP = (\d+);", src).group(1) == str(fca.HOPPER_MAX_P)
+        assert re.search(r"constexpr int kWords = (\d+);", src).group(1) == str(fca._MASK_WORDS)
+        assert 441 <= fca.HOPPER_MAX_P <= 32 * fca._MASK_WORDS  # 441: the main path's 21 x 21
+
+    def test_reset_launches(self):
+        fca.flash_shared_kv_cross_attn.launches_by_variant["hopper"] += 1
+        fca.reset_launches()
+        assert fca.flash_shared_kv_cross_attn.launches == 0
+        assert fca.flash_shared_kv_cross_attn.launches_by_variant == {"simple": 0, "hopper": 0}
 
 
 def _gather_inputs(seed, nH, HW, C, S, lo=0, hi=None):
@@ -293,10 +345,35 @@ class TestSharedKVKernelOnCard:
             q.float(), k.float(), v.float(), fca.guard_empty_mask(mask))
         assert float((got.float() - want).abs().max()) <= tol
 
+    @pytest.mark.parametrize("NP,Lq,P,dtype,hd,variant", VARIANT_CASES)
+    def test_variant_matches_plain(self, cuda_device, NP, Lq, P, dtype, hd, variant):
+        """Each variant on its own shapes, by the launch counts it adds; a
+        fully masked 64-patch chunk and guarded empty rows in each case."""
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        q, k, v, mask = _skv(9, NP, 3, Lq, hd, P)
+        mask[:, 64:128] = False                     # one whole chunk (or none when P <= 64)
+        mask[1::2, :64] = False
+        mask[::7] = False                           # empty rows (guarded)
+        q, k, v, mask = (t.to(cuda_device) for t in _t(q, k, v, mask))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        before = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        got = fca.flash_shared_kv_cross_attn(q, k, v, mask)
+        torch.cuda.synchronize()
+        after = fca.flash_shared_kv_cross_attn.launches_by_variant
+        assert {name: after[name] - before[name] for name in after} == {
+            name: int(name == variant) for name in after}
+        want = fca.shared_kv_cross_attn_plain(
+            q.float(), k.float(), v.float(), fca.guard_empty_mask(mask))
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert float((got.float() - want).abs().max()) <= tol
+
     def test_kernel_rejects_unsupported_input(self, cuda_device):
         q, k, v, mask = (t.to(cuda_device) for t in _t(*_skv(6, 2, 2, 3, 24, 10)))
         with pytest.raises(ValueError):
             fca.flash_shared_kv_cross_attn(q, k, v, mask)       # hd 24
+        q, k, v, mask = (t.to(cuda_device) for t in _t(*_skv(6, 2, 2, 3, 64, 10)))
+        with pytest.raises(ValueError):
+            fca.flash_shared_kv_cross_attn(q, k, v, mask, variant="hopper")  # float32
         q, k, v, mask = (t.to(cuda_device) for t in _t(*_skv(6, 2, 2, 3, 16, 10)))
         with pytest.raises(TypeError):
             fca.flash_shared_kv_cross_attn(q.half(), k.half(), v.half(), mask)

@@ -41,7 +41,19 @@ Phases, each fatal on failure:
      on the micro-batch's tokens: pan maps, objects, top-20 pairs and
      top-100 triplets identical, logits within TOL_LOGIT_REL, and a token
      chosen differently only where its top-1 margin is within twice the
-     largest logit change at the steps that agree.
+     largest logit change at the steps that agree;
+  7. the tool path: a PNG fixture of 12 images at COCO sizes (4 landscape,
+     4 portrait, 4 square) with GT PNGs and a PSG json, written by the
+     port's own codec; ``openpsg_tpu_torch.tools.infer.main`` on the card
+     with the port's ``baseline_v4_ov.py`` plus the int8 deployment
+     settings (3 buckets of 4 images; the tool selects micro-batch 4),
+     launch counts read around exactly that run; the submission checked
+     (12 records in test order, each PNG at its image's size) and graded;
+     section times per image, images per second, the prefetch overlap; the
+     square chunk's model call timed alone and beside a thread doing the
+     prefetch's work, in turns; then 4 of the images again with
+     ``--profile`` and the share of the model sections in which the card
+     ran a kernel.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -458,6 +470,10 @@ def main() -> int:
 
     # ---- 6. the deployment path
     phase_deployment(torch, skv, gat)
+    torch.cuda.empty_cache()
+
+    # ---- 7. the tool path
+    phase_tool(torch, skv, gat)
 
     for k in (skv, gat):
         k["launches"] = sum(k["launches_by_path"].values())
@@ -727,6 +743,178 @@ def phase_deployment(torch, skv, gat):
             + ", ".join(f"{k} {v:.1f} ms" for k, v in st.items())
             + f"; decode_trips {int(one['dev'][0]['decode_trips'])}")
     compare_runs(torch, "deploy", per_image(torch, mb), per)
+
+
+# COCO sizes (h, w): 4 square, 3 + 1 landscape, 4 portrait.  The tool runs
+# the largest bucket first, so its first chunk is the 4 square images, the
+# ones ``--limit 4`` takes again under the profiler
+TOOL_SIZES = [(640, 640)] * 4 + [(480, 640)] * 3 + [(375, 500)] + [(640, 480)] * 4
+TOOL_INT8 = "tpu = dict(llm_int8=True, act_int8=True, enc_points_per_level=[2, 2, 2, 4])\n"
+
+
+def write_png_fixture(root, sizes, seed=0):
+    """Images (three coloured regions plus noise), GT panoptic PNGs with
+    three segments (person, dog, sky) and a PSG json whose test split is
+    every image, written by the port's PNG codec → the json's path."""
+    import numpy as np
+
+    from openpsg_tpu_torch.utils.image_io import encode_png_rgb, write_png
+    from openpsg_tpu_torch.utils.panoptic import id2rgb
+
+    rng = np.random.default_rng(seed)
+    colours = np.asarray([[200, 60, 60], [60, 200, 60], [60, 60, 200]])
+    data = []
+    for i, (h, w) in enumerate(sizes):
+        pan = np.full((h, w), 7003)
+        pan[: h // 2, : w // 2], pan[: h // 2, w // 2:] = 7001, 7002
+        img = colours[pan - 7001] + rng.integers(-30, 30, (h, w, 3))
+        write_png(os.path.join(root, f"{i}.png"),
+                  encode_png_rgb(np.clip(img, 0, 255).astype(np.uint8)))
+        write_png(os.path.join(root, f"pan{i}.png"), encode_png_rgb(id2rgb(pan)))
+        data.append(dict(image_id=str(i), file_name=f"{i}.png", pan_seg_file_name=f"pan{i}.png",
+                         height=h, width=w, relations=[[0, 2, 4], [1, 0, 23]],
+                         segments_info=[dict(id=7001, category_id=0, isthing=1),
+                                        dict(id=7002, category_id=16, isthing=1),
+                                        dict(id=7003, category_id=119, isthing=0)]))
+    path = os.path.join(root, "psg.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(dict(data=data, test_image_ids=[d["image_id"] for d in data]), f)
+    return path
+
+
+def prefetch_contention(model, root, sizes, pairs=3):
+    """Does the tool's prefetch slow its host-bound model?  The square chunk
+    (``infer_microbatch`` on the first 4 images) timed alone and with a
+    thread preparing the 4 landscape images as the tool's worker does
+    (decode + keep-ratio resize), in turns (with, alone, alone, with, ...)
+    → (alone seconds, with-worker seconds), one per turn."""
+    import threading
+
+    import numpy as np
+
+    from openpsg_tpu_torch.data.preprocess import Preprocessor, aspect_buckets, load_image_rgb
+
+    prep = Preprocessor(scale=(1333, 1333), buckets=aspect_buckets((1333, 1333)))
+    square = [prep(load_image_rgb(os.path.join(root, f"{i}.png"))) for i in range(4)]
+    imgs = np.stack([e["image"] for e in square])
+    hws = np.asarray([e["img_shape"] for e in square], np.int32)
+    landscape = [os.path.join(root, f"{i}.png") for i in range(4, 8)]
+    bucket = prep.bucket_for(*sizes[4])
+
+    def work():
+        for path in landscape:
+            prep(load_image_rgb(path), bucket=bucket)
+
+    times = {False: [], True: []}
+    for k in range(2 * pairs):
+        with_worker = k % 4 in (0, 3)
+        worker = threading.Thread(target=work) if with_worker else None
+        if worker:
+            worker.start()
+        t0 = time.perf_counter()
+        model.infer_microbatch(imgs, hws)
+        times[with_worker].append(time.perf_counter() - t0)
+        if worker:
+            worker.join()
+    return times[False], times[True]
+
+
+def phase_tool(torch, skv, gat):
+    """Phase 7: the infer tool on the card at full width with the int8
+    deployment settings, on a 12-image PNG fixture; then the grader; then
+    the prefetch's cost to the model (:func:`prefetch_contention`); then 4
+    images again under the profiler."""
+    import shutil
+    import tempfile
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import eval_pq, grade, infer
+    from openpsg_tpu_torch.utils.image_io import read_png
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tool_")
+    try:
+        ann = write_png_fixture(root, TOOL_SIZES)
+        cfg = os.path.join(root, "deploy.py")
+        with open(cfg, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                    + TOOL_INT8)
+        out = os.path.join(root, "out")
+        argv = ["--config", cfg, "--test-file", ann, "--data-dir", root, "--output-dir", out]
+        n = len(TOOL_SIZES)
+        torch.cuda.synchronize()
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        stats = infer.main(argv)
+        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        skv["launches_by_path"]["tool"] = fca.flash_shared_kv_cross_attn.launches
+        skv["launches_by_variant"]["tool"] = by_variant
+        gat["launches_by_path"]["tool"] = mg.sparse_row_gather.launches
+        check_variants(by_variant, n)
+        if stats["n_images"] != n or stats["micro_batch"] != 4:
+            raise AssertionError(f"tool ran {stats['n_images']} images at micro-batch "
+                                 f"{stats['micro_batch']}, expected {n} at 4")
+        with open(stats["submission"], encoding="utf-8") as f:
+            recs = json.load(f)
+        if [r["pan_seg_file_name"] for r in recs] != [f"{i}.png" for i in range(n)]:
+            raise AssertionError("submission records are not in test order")
+        for i, (rec, hw) in enumerate(zip(recs, TOOL_SIZES)):
+            png = read_png(os.path.join(out, "submission", "panseg", rec["pan_seg_file_name"]))
+            if png.shape[:2] != hw or not rec["segments_info"] or not rec["relations"]:
+                raise AssertionError(f"record {i}: PNG {png.shape[:2]} vs image {hw}, "
+                                     f"{len(rec['segments_info'])} segments, "
+                                     f"{len(rec['relations'])} relations")
+        sec = stats["sections"]
+        per = {k: sum(v) / n * 1e3 for k, v in sec.items()}
+        waited = sum(sec["load+preprocess"])
+        chunk_ms = [t * 1e3 for t in sec["model"]]
+        log(f"[tool] {n} images (buckets 4 x 1344x1344, 4 x 1024x1344, 4 x 1344x1024), "
+            f"micro-batch {stats['micro_batch']}: {stats['seconds']:.2f} s, "
+            f"{n / stats['seconds']:.3f} img/s; per image " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in per.items())
+            + f"; prefetch {stats['prep_seconds']:.2f} s on the worker thread, {waited:.2f} s "
+            f"waited on the main thread ({stats['prep_seconds'] - waited:.2f} s hidden under "
+            f"the model); model per chunk (square, landscape, portrait) "
+            + ", ".join(f"{t:.1f}" for t in chunk_ms) + " ms, the worker preparing the next "
+            "chunk during the first two; flash_shared_kv_cross_attn launches "
+            f"{by_variant}; sparse_row_gather launches {mg.sparse_row_gather.launches}")
+        grading = ["--submission", out, "--gt-json", ann, "--data-dir", root]
+        r = grade.main(grading)
+        pq = eval_pq.main(grading)
+        log(f"[tool] graded: {json.dumps(r)} {json.dumps(pq)} (random weights: no fused "
+            "object, so each record carries the dummy segment and relation)")
+
+        model = build_detector_from_config(Config.fromfile(cfg), seed=0)
+        alone, busy_worker = prefetch_contention(model, root, TOOL_SIZES)
+        med = lambda t: statistics.median(t) * 1e3
+        log(f"[tool] the square chunk's infer_microbatch, in turns: alone "
+            + ", ".join(f"{t * 1e3:.1f}" for t in alone) + " ms (median "
+            f"{med(alone):.1f}); with a thread preparing the landscape chunk "
+            + ", ".join(f"{t * 1e3:.1f}" for t in busy_worker) + " ms (median "
+            f"{med(busy_worker):.1f}); difference of medians "
+            f"{med(busy_worker) - med(alone):+.1f} ms")
+
+        prof_dir = os.path.join(root, "profile")
+        p_stats = infer.main(argv + ["--limit", "4", "--output-dir", os.path.join(root, "out4"),
+                                     "--profile", prof_dir], model=model)
+        busy, window = p_stats["busy_seconds"], p_stats["model_trace_seconds"]
+        log(f"[tool] the 4 square images again under the profiler ({p_stats['seconds']:.2f} s): "
+            f"a kernel ran in {busy:.3f} s of the {window:.3f} s model section "
+            f"({busy / window:.1%}; the profiler's host overhead stretches the section); "
+            f"against the same chunk's unprofiled model section ({chunk_ms[0] / 1e3:.3f} s): "
+            f"{busy / (chunk_ms[0] / 1e3):.1%}")
+        log("[tool] stats " + json.dumps(dict(
+            images=n, seconds=stats["seconds"], img_per_s=n / stats["seconds"],
+            ms_per_image=per, model_chunk_ms=chunk_ms, prep_seconds=stats["prep_seconds"],
+            waited_seconds=waited, profiled_seconds=p_stats["seconds"],
+            busy_seconds=busy, profiled_model_seconds=window,
+            busy_share_profiled=busy / window, busy_share_unprofiled=busy / (chunk_ms[0] / 1e3),
+            square_chunk_alone_ms=[t * 1e3 for t in alone],
+            square_chunk_with_worker_ms=[t * 1e3 for t in busy_worker])))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def compare_runs(torch, tag, a, b):

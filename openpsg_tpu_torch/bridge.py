@@ -16,10 +16,11 @@ names mirror the flax names, so the map is mechanical:
   becomes ``weight_q`` ``[out, in]`` (still int8), and the per-channel
   ``scale`` under a quantized projection stays ``scale``.
 
-Accounting is strict: every leaf maps to distinct port parameters, every
-port parameter is filled (``load_state_dict(strict=True)``), and ``text``
-is reported as the one part left unused (the language encoder is a later
-slice; ``class_embeds`` arrives as a tensor).
+Accounting is strict: every leaf maps to distinct port parameters and every
+port parameter is filled (``load_state_dict(strict=True)``).  ``text`` is
+the class-name language encoder; ``class_embeds``, the matrix the JAX model
+classifies against (its encoder's output, or a precomputed ``.npy``), is
+taken as it is.
 """
 
 from __future__ import annotations
@@ -37,8 +38,7 @@ SCANNED = {
     ("segmenter", "decoder", "layers"): ("segmenter", "decoder", "layers"),
     ("llm", "core", "layers"): ("llm", "core", "layers"),
 }
-MODULE_PARTS = ("segmenter", "head", "llm")
-UNUSED_PARTS = ("text",)
+MODULE_PARTS = ("segmenter", "head", "llm", "text")
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -114,12 +114,11 @@ def load_part(module: torch.nn.Module, part: str, tree) -> int:
 
 def load_jax_params(model, params) -> Dict[str, object]:
     """Load a JAX ``PSGv4.params`` tree (numpy leaves) into a port
-    ``PSGv4``.  Returns a report: leaves used per part and the parts left
-    unused."""
-    unknown = set(params) - set(MODULE_PARTS) - set(UNUSED_PARTS) - {"class_embeds"}
+    ``PSGv4``.  Returns a report: leaves used per part."""
+    unknown = set(params) - set(MODULE_PARTS) - {"class_embeds"}
     if unknown:
         raise KeyError(f"unexpected top-level keys {sorted(unknown)}")
-    report = {"used": {}, "unused": [p for p in UNUSED_PARTS if p in params]}
+    report = {"used": {}}
     for part in MODULE_PARTS:
         report["used"][part] = load_part(getattr(model, part), part, params[part])
     ce = np.array(params["class_embeds"], dtype=np.float32)

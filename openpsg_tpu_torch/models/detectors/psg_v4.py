@@ -12,9 +12,9 @@ and :meth:`PSGv4.infer_gt` (ground-truth masks in place of fusion).
 
 Weights are seeded random at construction (``seed``); with
 ``llm.quant`` the seeded dense LLM is quantized by :func:`quantize_llama`.
-Trained or JAX weights load through :mod:`openpsg_tpu_torch.bridge`.  Class
-embeddings are a tensor (``class_embeds``); the language encoder is a later
-slice.
+Trained or JAX weights load through :mod:`openpsg_tpu_torch.bridge`.  The
+class embeddings (``class_embeds``) are the language encoder's output for
+the class names, or a precomputed ``.npy`` matrix.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ import torch
 from openpsg_tpu_torch import resolve_device
 from openpsg_tpu_torch.data.vocab import (
     INSTANCE_OFFSET,
+    NUM_THING_CLASSES,
     OBJECT_CLASSES,
     RELATION_CLASSES,
 )
@@ -53,6 +54,7 @@ from openpsg_tpu_torch.models.relation.head_v4 import (
 from openpsg_tpu_torch.models.relation.qformer import QFormerConfig
 from openpsg_tpu_torch.models.relation.tokenizer import build_prompt_tokenizer
 from openpsg_tpu_torch.models.segmenter.fusion import panoptic_fusion
+from openpsg_tpu_torch.models.segmenter.language import TextEncoder, encode_names
 from openpsg_tpu_torch.models.segmenter.openseed import (
     OpenSeedSegmenter,
     SegmenterConfig,
@@ -67,11 +69,14 @@ LLM_INSTRUCTION = "What are the relations between {} and {}? Assistant: "
 MAX_INSTR_LEN = 16
 MAX_PROMPT_LEN = 20
 
-# Micro-batch size and the decode length above which the JAX package's
-# tools/infer.py controller prefers the micro-batch program (psg_v4.py:72-73);
-# that controller comes with the port's host runtime.
+# Auto micro-batch selection in tools/infer.py (the JAX package's values,
+# psg_v4.py:72-81): the micro-batch size, the median realized decode length
+# at which the controller switches to it, the window of images that median
+# is taken over, and the margin below the threshold for switching back.
 AUTO_MB_DECODE_STEPS = 10
 AUTO_MB_SIZE = 4
+AUTO_MB_CALIB_K = 4
+AUTO_MB_HYSTERESIS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +85,15 @@ class PSGv4Config:
     head: HeadV4Config = HeadV4Config()
     llm: LlamaConfig = LlamaConfig()
     max_new_tokens: int = 16
+    # stop decoding once every sequence hit EOS (False: always
+    # max_new_tokens trips)
+    decode_early_exit: bool = True
     object_mask_thr: float = 0.25
     iou_thr: float = 0.8
+    input_hw: Optional[Tuple[int, int]] = None  # model bucket override
+    # 1: fuse at full image resolution; s > 1: fuse on the stride-s grid and
+    # upsample the id map nearest
+    fusion_stride: int = 1
     fusion_candidates: int = 64
 
     @staticmethod
@@ -160,15 +172,34 @@ def _stage(times: Optional[Dict[str, float]], name: str, device: torch.device):
 class PSGv4:
     """Holds the modules, tokenizer tables and the inference programs."""
 
-    def __init__(self, cfg: PSGv4Config, seed: int = 0, device=None):
-        """The PSG vocabulary (133 object, 56 relation classes) and its
-        word-level prompt tokenizer, shared by the Q-Former and the LLM."""
+    def __init__(self, cfg: PSGv4Config, seed: int = 0, device=None,
+                 class_names: Optional[List[str]] = None,
+                 relation_names: Optional[List[str]] = None,
+                 num_things: Optional[int] = None,
+                 precomputed_class_embeds: Optional[str] = None):
+        """``class_names`` / ``relation_names``: the vocabulary (default the
+        PSG one, 133 object and 56 relation classes); the first
+        ``num_things`` classes are things (default 80 for the PSG
+        vocabulary, all of a custom one).  One word-level prompt tokenizer
+        over that vocabulary serves the Q-Former and the LLM.
+        ``precomputed_class_embeds``: an ``.npy`` [classes, proj_dim] used as
+        the class embeddings as it is, in place of the language encoder's."""
         self.device = resolve_device(device)
-        self.tokenizer = build_prompt_tokenizer(list(OBJECT_CLASSES) + list(RELATION_CLASSES))
+        if not 1 <= cfg.fusion_stride <= 4:
+            # past 4 the stride-4 masks would be downsampled, which the JAX
+            # package does with an antialiasing resize
+            raise ValueError(f"fusion_stride {cfg.fusion_stride}: the port supports 1 to 4")
+        self.class_names = list(class_names or OBJECT_CLASSES)
+        self.relation_names = list(relation_names or RELATION_CLASSES)
+        if num_things is not None:
+            self.num_things = num_things
+        else:
+            self.num_things = NUM_THING_CLASSES if class_names is None else len(self.class_names)
+        self.tokenizer = build_prompt_tokenizer(self.class_names + self.relation_names)
         self.qf_parts = build_instruction_table(
-            self.tokenizer, OBJECT_CLASSES, QFORMER_INSTRUCTION, MAX_INSTR_LEN)
+            self.tokenizer, self.class_names, QFORMER_INSTRUCTION, MAX_INSTR_LEN)
         self.llm_parts = build_instruction_table(
-            self.tokenizer, OBJECT_CLASSES, LLM_INSTRUCTION, MAX_PROMPT_LEN)
+            self.tokenizer, self.class_names, LLM_INSTRUCTION, MAX_PROMPT_LEN)
         head_cfg = dataclasses.replace(
             cfg.head, llm_feature_size=cfg.llm.dim,
             qformer=dataclasses.replace(
@@ -205,9 +236,21 @@ class PSGv4:
             self.llm.load_state_dict(state, assign=True)
             self.llm.eval().requires_grad_(False)
             del state
-        ce = torch.randn(len(OBJECT_CLASSES), c.segmenter.proj_dim,
-                         generator=gen, device=self.device)
-        self.class_embeds = ce / ce.norm(dim=-1, keepdim=True)
+        self.text = build(lambda: TextEncoder(dim=c.segmenter.proj_dim), torch.float32)
+        if precomputed_class_embeds:
+            ce = torch.from_numpy(np.load(precomputed_class_embeds)).float()
+            self.class_embeds = ce.to(self.device)
+        else:
+            with torch.no_grad():
+                self.class_embeds = self.text(torch.from_numpy(
+                    encode_names(self.class_names)).to(self.device))
+
+    def _model_hw(self) -> Tuple[int, int]:
+        """The model's input bucket: ``input_hw``, else 64² for the tiny
+        segmenter and 1344² (the 1333 test scale padded to ÷32) otherwise."""
+        if self.cfg.input_hw is not None:
+            return tuple(self.cfg.input_hw)
+        return (64, 64) if self.cfg.segmenter.embed_dim <= 32 else (1344, 1344)
 
     # ------------------------------------------------------------ stages
     @torch.no_grad()
@@ -217,13 +260,16 @@ class PSGv4:
 
     @torch.no_grad()
     def fuse_select(self, seg_out, img_hw):
-        """Fusion at full image resolution over the top-C candidates, object
-        selection, stride-4 object masks.  → (object_masks, valid, labels,
-        sel_oid, obj_scores, pan_seg, pass_count)."""
+        """Fusion over the top-C candidates on the stride-``fusion_stride``
+        grid, object selection, stride-4 object masks.  → (object_masks,
+        valid, labels, sel_oid, obj_scores, pan_seg at the image's
+        resolution, pass_count)."""
         c = self.cfg
         M = c.head.max_objects_padded
         H4, W4 = seg_out["mask_features"].shape[:2]
         H, W = H4 * 4, W4 * 4
+        s = max(int(c.fusion_stride), 1)
+        Hf, Wf = H // s, W // s
         cls_logits, masks_small = seg_out["cls_logits"], seg_out["masks"]
         Qall = cls_logits.shape[0]
         C = int(c.fusion_candidates)
@@ -233,13 +279,13 @@ class PSGv4:
             cand = torch.sort(topk_stable(all_scores, C)[1]).values
             cls_logits, masks_small = cls_logits[cand], masks_small[cand]
         masks = torch.nn.functional.interpolate(
-            masks_small[None], size=(H, W), mode="bilinear", align_corners=False)[0]
+            masks_small[None], size=(Hf, Wf), mode="bilinear", align_corners=False)[0]
         dev = masks.device
-        inside = ((torch.arange(H, device=dev)[:, None] < int(img_hw[0]))
-                  & (torch.arange(W, device=dev)[None, :] < int(img_hw[1])))
+        inside = ((torch.arange(Hf, device=dev)[:, None] * s < int(img_hw[0]))
+                  & (torch.arange(Wf, device=dev)[None, :] * s < int(img_hw[1])))
         fusion = panoptic_fusion(
             cls_logits, masks, object_mask_thr=c.object_mask_thr, iou_thr=c.iou_thr,
-            region_mask=inside)
+            num_things=self.num_things, region_mask=inside)
         sel, sel_oid, valid = select_objects(
             fusion.survive, fusion.object_ids, M, c.head.max_object_num)
         labels = (sel_oid % INSTANCE_OFFSET).to(torch.int32)
@@ -249,7 +295,8 @@ class PSGv4:
         obj_scores = qs[sel]
         pan4 = downsample_nearest(fusion.pan_seg, (H4, W4))
         object_masks = (pan4[None] == sel_oid[:, None, None]) & valid[:, None, None]
-        return object_masks, valid, labels, sel_oid, obj_scores, fusion.pan_seg, pass_count
+        pan_seg = downsample_nearest(fusion.pan_seg, (H, W))  # nearest upsample for s > 1
+        return object_masks, valid, labels, sel_oid, obj_scores, pan_seg, pass_count
 
     @torch.no_grad()
     def tail_pre(self, mask_features, object_masks, valid, labels, sel_oid,
@@ -300,7 +347,7 @@ class PSGv4:
         return greedy_decode(
             self.llm, prefix, pmask, self.cfg.max_new_tokens,
             eos_id=self.tokenizer.eos_id, pad_id=self.tokenizer.pad_id,
-            early_exit=True, trip_budget=trip_budget)
+            early_exit=self.cfg.decode_early_exit, trip_budget=trip_budget)
 
     # --------------------------------------------------------- entry points
     def infer(self, image_u8, img_hw, trip_budget: Optional[int] = None,
@@ -411,8 +458,8 @@ class PSGv4:
             # a glued multi-predicate emission reads 'rel1  rel2'
             for name in text.split("  "):
                 name = name.strip()
-                if name in RELATION_CLASSES:
-                    trip = (sub, obj, RELATION_CLASSES.index(name))
+                if name in self.relation_names:
+                    trip = (sub, obj, self.relation_names.index(name))
                     if trip not in rel_set:
                         rel_set.add(trip)
                         rel_pred.append(list(trip))

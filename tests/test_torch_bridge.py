@@ -45,8 +45,12 @@ class TestAccounting:
         assert report["used"][part] == sum(1 for _ in bridge._leaves(params[part]["params"]))
 
     def test_text_is_the_only_unused_part(self, tiny):
-        assert tiny[2]["unused"] == ["text"]
-        np.testing.assert_array_equal(tiny[1].class_embeds.numpy(), tiny[0]["class_embeds"])
+        """No part is left unused now that the language encoder is ported:
+        ``text`` loads into ``model.text``, and ``class_embeds`` is taken as
+        the JAX tree holds it."""
+        params, model, report = tiny
+        assert set(report["used"]) == set(params) == set(bridge.MODULE_PARTS) | {"class_embeds"}
+        np.testing.assert_array_equal(model.class_embeds.numpy(), params["class_embeds"])
 
     @pytest.mark.parametrize("edit", ["missing", "extra", "shape"])
     def test_refuses_a_bad_tree(self, tiny, edit):

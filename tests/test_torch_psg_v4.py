@@ -196,15 +196,28 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 
 def test_package_imports_without_jax():
+    """Every module of the port, its two configs (through ``Config.fromfile``,
+    which runs their ``custom_imports``) and the infer tool's ``--help``,
+    with JAX, the JAX package, cv2 and PIL unimportable."""
     code = (
-        "import sys, importlib, pkgutil\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['openpsg_tpu'] = None\n"
+        "import sys, importlib, pkgutil, contextlib, io\n"
+        "for m in ('jax', 'flax', 'openpsg_tpu', 'cv2', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
         "import openpsg_tpu_torch\n"
         "for m in pkgutil.walk_packages(openpsg_tpu_torch.__path__, 'openpsg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'openpsg_tpu')\n"
-        "       and sys.modules[m] is not None]\n"
+        "from openpsg_tpu_torch.core.config import Config\n"
+        "for name in ('baseline_v4_ov.py', 'tiny_v4_ov.py'):\n"
+        "    Config.fromfile('openpsg_tpu_torch/configs/psg/' + name)\n"
+        "from openpsg_tpu_torch.tools import infer\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as out:\n"
+        "    try:\n"
+        "        infer.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "assert '--micro-batch' in out.getvalue()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'openpsg_tpu',\n"
+        "       'cv2', 'PIL') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -53,7 +53,22 @@ Phases, each fatal on failure:
      square chunk's model call timed alone and beside a thread doing the
      prefetch's work, in turns; then 4 of the images again with
      ``--profile`` and the share of the model sections in which the card
-     ran a kernel.
+     ran a kernel;
+  8. training: (a) the tiny config, one training step on the card against
+     the CPU on the same weights and batch (losses, every head gradient
+     and the updated values within TOL_TRAIN_*; no shared-KV launch; a
+     nonzero gradient through the cross-attention); (b) full width through
+     ``openpsg_tpu_torch.tools.train.main``: the port's
+     ``baseline_v4_ov.py`` (bf16 Llama-2-7B frozen, the head trained) on a
+     PNG fixture from phase 7's writer with 8 train images at COCO sizes
+     (4-12 segments, 2-6 relations each) and 4 val images, 8 steps with
+     ``--validate --val-limit 4``: finite losses, the head changed, the
+     frozen groups bitwise unchanged, a checkpoint holding only the head
+     and its optimizer state, 0 launches in the steps and 2 hopper per
+     validation image; then 4 steps again with ``--stage-times`` for the
+     split; (c) ``openpsg_tpu_torch.tools.infer.main`` in the
+     ``exp_tag epoch`` layout restoring the trained head bitwise, on the 4
+     val images, its submission graded.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -94,6 +109,14 @@ TOL_LOGIT_REL = 0.1  # largest LLM logit change between the micro-batch (80
                      # the summation order, so bf16 roundings flip and
                      # propagate; a wrong weight, scale or row would move
                      # logits by their own size
+TOL_TRAIN_LOSS = 1e-4  # tiny float32 train step, card vs CPU, relative: the
+                       # same float32 arithmetic summed in another order
+TOL_TRAIN_GRAD = 1e-3  # each head gradient leaf, card vs CPU, relative to the
+                       # leaf's largest entry (leaves whose gradient is 0 up to
+                       # roundoff, below 1e-5 of the largest gradient, are held
+                       # to that instead): summation order through the
+                       # segmenter, the LLM's backward and the Q-Former's
+TOL_TRAIN_UPDATE = 1e-6  # values after the optimizer step (absolute; lr 1e-7)
 TOL_QDENSE_FLIPS = 0.01  # share of bf16 QDense outputs (weight-only) one
                          # bf16 step apart between card and CPU: the same
                          # exact products summed in float32 in another order
@@ -474,6 +497,11 @@ def main() -> int:
 
     # ---- 7. the tool path
     phase_tool(torch, skv, gat)
+    torch.cuda.empty_cache()
+
+    # ---- 8. training
+    phase_train_tiny(torch)
+    phase_train(torch, skv, gat)
 
     for k in (skv, gat):
         k["launches"] = sum(k["launches_by_path"].values())
@@ -752,33 +780,57 @@ TOOL_SIZES = [(640, 640)] * 4 + [(480, 640)] * 3 + [(375, 500)] + [(640, 480)] *
 TOOL_INT8 = "tpu = dict(llm_int8=True, act_int8=True, enc_points_per_level=[2, 2, 2, 4])\n"
 
 
-def write_png_fixture(root, sizes, seed=0):
+def write_png_fixture(root, sizes, seed=0, train_sizes=()):
     """Images (three coloured regions plus noise), GT panoptic PNGs with
-    three segments (person, dog, sky) and a PSG json whose test split is
-    every image, written by the port's PNG codec → the json's path."""
+    three segments (person, dog, sky) and two relations, which form the
+    json's test split; then ``train_sizes`` train images, each a grid of
+    4-12 segments of seeded classes (things and stuff) in their own colours
+    with 2-6 seeded relations.  Written by the port's PNG codec → the json's
+    path."""
     import numpy as np
 
+    from openpsg_tpu_torch.data.vocab import NUM_THING_CLASSES
     from openpsg_tpu_torch.utils.image_io import encode_png_rgb, write_png
     from openpsg_tpu_torch.utils.panoptic import id2rgb
 
     rng = np.random.default_rng(seed)
     colours = np.asarray([[200, 60, 60], [60, 200, 60], [60, 60, 200]])
     data = []
+
+    def write(i, img, pan, segments, relations):
+        write_png(os.path.join(root, f"{i}.png"),
+                  encode_png_rgb(np.clip(img, 0, 255).astype(np.uint8)))
+        write_png(os.path.join(root, f"pan{i}.png"), encode_png_rgb(id2rgb(pan)))
+        h, w = pan.shape
+        data.append(dict(image_id=str(i), file_name=f"{i}.png", pan_seg_file_name=f"pan{i}.png",
+                         height=h, width=w, relations=relations, segments_info=segments))
+
     for i, (h, w) in enumerate(sizes):
         pan = np.full((h, w), 7003)
         pan[: h // 2, : w // 2], pan[: h // 2, w // 2:] = 7001, 7002
         img = colours[pan - 7001] + rng.integers(-30, 30, (h, w, 3))
-        write_png(os.path.join(root, f"{i}.png"),
-                  encode_png_rgb(np.clip(img, 0, 255).astype(np.uint8)))
-        write_png(os.path.join(root, f"pan{i}.png"), encode_png_rgb(id2rgb(pan)))
-        data.append(dict(image_id=str(i), file_name=f"{i}.png", pan_seg_file_name=f"pan{i}.png",
-                         height=h, width=w, relations=[[0, 2, 4], [1, 0, 23]],
-                         segments_info=[dict(id=7001, category_id=0, isthing=1),
-                                        dict(id=7002, category_id=16, isthing=1),
-                                        dict(id=7003, category_id=119, isthing=0)]))
+        write(i, img, pan, [dict(id=7001, category_id=0, isthing=1),
+                            dict(id=7002, category_id=16, isthing=1),
+                            dict(id=7003, category_id=119, isthing=0)], [[0, 2, 4], [1, 0, 23]])
+    test_ids = [d["image_id"] for d in data]
+    for j, (h, w) in enumerate(train_sizes):
+        n = int(rng.integers(4, 13))
+        rows = int(np.ceil(np.sqrt(n)))
+        cols = -(-n // rows)
+        cell = (np.arange(h)[:, None] * rows // h) * cols + np.arange(w)[None, :] * cols // w
+        cell = np.minimum(cell, n - 1)
+        cats = rng.integers(0, 133, n)
+        palette = rng.integers(30, 226, (n, 3))
+        img = palette[cell] + rng.integers(-30, 30, (h, w, 3))
+        subj = rng.integers(0, n, int(rng.integers(2, 7)))
+        relations = [[int(s), int((s + rng.integers(1, n)) % n), int(rng.integers(0, 56))]
+                     for s in subj]
+        write(len(sizes) + j, img, 9001 + cell,
+              [dict(id=9001 + k, category_id=int(c), isthing=int(c < NUM_THING_CLASSES))
+               for k, c in enumerate(cats)], relations)
     path = os.path.join(root, "psg.json")
     with open(path, "w", encoding="utf-8") as f:
-        json.dump(dict(data=data, test_image_ids=[d["image_id"] for d in data]), f)
+        json.dump(dict(data=data, test_image_ids=test_ids), f)
     return path
 
 
@@ -914,6 +966,247 @@ def phase_tool(torch, skv, gat):
             square_chunk_alone_ms=[t * 1e3 for t in alone],
             square_chunk_with_worker_ms=[t * 1e3 for t in busy_worker])))
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_tiny(torch):
+    """Phase 8a: one training step of the tiny config (float32) on the card
+    against the CPU, on the same weights and the same seeded batch: the
+    losses (TOL_TRAIN_LOSS), every head gradient leaf (TOL_TRAIN_GRAD) and
+    the values after the optimizer step (TOL_TRAIN_UPDATE).  The step must
+    launch no shared-KV kernel (gradients run the plain attention, as in
+    the JAX package) and get a nonzero gradient through the
+    cross-attention's key projection."""
+    import numpy as np
+
+    from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca
+    from openpsg_tpu_torch.train.trainer import (
+        TrainBatch,
+        V4Trainer,
+        host_batch,
+        make_lr_schedule,
+        make_optimizer,
+    )
+
+    cfg = PSGv4Config.tiny_test()
+    cpu = PSGv4(cfg, seed=3, device="cpu")
+    gpu = PSGv4(cfg, seed=3, device="cuda")
+    for part in ("segmenter", "head", "llm", "text"):
+        getattr(gpu, part).load_state_dict(getattr(cpu, part).state_dict())
+    gpu.class_embeds = cpu.class_embeds.cuda()
+    c = cpu.cfg
+    M, R = c.head.max_objects_padded, c.head.num_relation_classes
+    rng = np.random.default_rng(8)
+    examples = []
+    for b in range(2):
+        valid = np.arange(M) < 5 - b
+        t = np.zeros((M, M, R), np.float32)
+        t[0, 1, 3] = t[0, 1, 10] = t[2, 0, 10] = t[3, 1, 4] = 1
+        examples.append(dict(
+            image=rng.integers(0, 255, (64, 64, 3)).astype(np.float32),
+            object_masks=(rng.random((M, 16, 16)) > 0.7) & valid[:, None, None],
+            object_labels=rng.integers(0, 133, M).astype(np.int32),
+            object_valid=valid, relation_target=t))
+    arrays = host_batch(examples, cpu.tokenizer, cpu.relation_names, rng,
+                        c.head.sampled_qformer_batch_size, c.head.max_llm_forward_num, 12)
+    runs = {}
+    for tag, m in (("cpu", cpu), ("card", gpu)):
+        tr = V4Trainer(m)
+        fca.reset_launches()
+        losses, grads = tr.gradients(TrainBatch.from_numpy(arrays, m.device))
+        opt = make_optimizer(make_lr_schedule(steps_per_epoch=10))
+        opt.step(tr.master, grads, opt.init(tr.master))
+        if tag == "card":
+            torch.cuda.synchronize()
+            launches = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        runs[tag] = ({k: float(v) for k, v in losses.items()},
+                     {n: g.cpu() for n, g in grads.items()},
+                     {n: v.detach().cpu() for n, v in tr.master.items()})
+    (l_cpu, g_cpu, v_cpu), (l_card, g_card, v_card) = runs["cpu"], runs["card"]
+    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu)
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+    grad_err, zero_leaves = 0.0, []
+    for n, g in g_cpu.items():
+        scale = float(g.abs().max())
+        if scale < 1e-5 * largest:          # 0 up to roundoff (e.g. key biases)
+            zero_leaves.append(n)
+            grad_err = max(grad_err, float(g_card[n].abs().max()) / largest / 1e-5
+                           * TOL_TRAIN_GRAD)
+            continue
+        grad_err = max(grad_err, float((g_card[n] - g).abs().max()) / scale)
+    upd_err = max(float((v_card[n] - v).abs().max()) for n, v in v_cpu.items())
+    cross = float(g_card["head.qformer.cross_attn0.k.weight"].abs().sum())
+    ok = (loss_err <= TOL_TRAIN_LOSS and grad_err <= TOL_TRAIN_GRAD
+          and upd_err <= TOL_TRAIN_UPDATE and launches == {"simple": 0, "hopper": 0}
+          and cross > 0)
+    log(f"[train-tiny] one step, B=2, card vs CPU: losses {l_card} (largest relative "
+        f"difference {loss_err:.3e}, tol {TOL_TRAIN_LOSS:g}); {len(g_cpu)} head gradient "
+        f"leaves, largest difference relative to the leaf {grad_err:.3e} (tol "
+        f"{TOL_TRAIN_GRAD:g}; {len(zero_leaves)} leaves 0 up to roundoff: {zero_leaves}); "
+        f"values after the update within {upd_err:.3e} (tol {TOL_TRAIN_UPDATE:g}); "
+        f"shared-KV launches {launches}; |grad cross_attn0.k.weight| sum {cross:.4e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the tiny train step on the card disagrees with the CPU")
+
+
+# COCO sizes (h, w) of phase 8's fixture: 8 train images, 4 val images
+TRAIN_SIZES = [(640, 480), (480, 640), (427, 640), (640, 427), (500, 375), (375, 500),
+               (640, 640), (612, 612)]
+VAL_SIZES = [(640, 640), (480, 640), (640, 480), (427, 640)]
+
+
+def phase_train(torch, skv, gat):
+    """Phase 8b and 8c: the train tool at full ``baseline_v4_ov`` width
+    (bf16 Llama-2-7B frozen, the head trained) on a PNG fixture of 8 train
+    and 4 val images, 8 steps with validation; the checks listed in the
+    module docstring; the restore through the infer tool's ``exp_tag
+    epoch`` layout; then 4 more steps with ``--stage-times`` for the
+    split."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import eval_pq, grade, infer, train
+    from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
+    from openpsg_tpu_torch.train.trainer import V4Trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cwd = os.getcwd()
+    real_step = V4Trainer.train_step
+    try:
+        ann = write_png_fixture(root, VAL_SIZES, seed=1, train_sizes=TRAIN_SIZES)
+        tag = "smoke"
+        cfg_path = os.path.join(root, f"{tag}.py")
+        split = f"dict(ann_file={ann!r}, img_prefix={root!r}, seg_prefix={root!r})"
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                    f"data = dict(train={split}, val={split}, test={split})\n"
+                    "runner = dict(max_epochs=1)\nlog_config = dict(interval=1)\n")
+        model = build_detector_from_config(Config.fromfile(cfg_path), seed=0)
+        groups = model.param_groups()
+        frozen = {g: {n: t.detach().cpu() for n, t in groups[g].items()}
+                  for g in ("segmenter", "llm", "text", "class_embeds")}
+        head_before = {n: t.detach().clone() for n, t in groups["head"].items()}
+
+        step_launches = []
+
+        def counted(self, *a, **kw):
+            before = fca.flash_shared_kv_cross_attn.launches
+            out = real_step(self, *a, **kw)
+            step_launches.append(fca.flash_shared_kv_cross_attn.launches - before)
+            return out
+
+        V4Trainer.train_step = counted
+        wd = os.path.join(root, "work_dirs", f"ov_psg_{tag}")
+        torch.cuda.synchronize()
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        t0 = time.perf_counter()
+        stats = train.main([cfg_path, "--work-dir", wd, "--max-steps", "8", "--validate",
+                            "--val-limit", "4"], model=model)
+        wall = time.perf_counter() - t0
+        V4Trainer.train_step = real_step
+        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        skv["launches_by_path"]["train_steps"] = sum(step_launches)
+        skv["launches_by_path"]["train_validate"] = (fca.flash_shared_kv_cross_attn.launches
+                                                     - sum(step_launches))
+        skv["launches_by_variant"]["train"] = by_variant
+        gat["launches_by_path"]["train"] = mg.sparse_row_gather.launches
+        n_val = len(VAL_SIZES)
+        if stats["steps"] != 8 or step_launches != [0] * 8:
+            raise AssertionError(f"{stats['steps']} steps, shared-KV launches per step "
+                                 f"{step_launches}: expected 8 steps launching none")
+        check_variants(by_variant, n_val)
+        values = [v for m in stats["metrics"] for v in m.values()]
+        if len(stats["metrics"]) != 8 or not all(np.isfinite(values)):
+            raise AssertionError(f"logged metrics not finite: {stats['metrics']}")
+        changed = sum(not torch.equal(t, head_before[n]) for n, t in groups["head"].items())
+        same = {g: all(torch.equal(groups[g][n].detach().cpu(), t) for n, t in d.items())
+                for g, d in frozen.items()}
+        if not changed or not all(same.values()):
+            raise AssertionError(f"head tensors changed {changed}; frozen unchanged {same}")
+        ckpt = PartCheckpointer(os.path.join(wd, "ckpts"))
+        params, opt_state, meta, step = ckpt.restore()
+        step_dir = os.path.join(ckpt.directory, f"step_{step}")
+        sizes = {f: os.path.getsize(os.path.join(step_dir, f)) for f in sorted(os.listdir(step_dir))}
+        if ({n.split(".")[0] for n in params} != {"head"} or set(opt_state["mu"]) != set(params)
+                or set(params) != {f"head.{n}" for n in groups["head"]} or step != 8
+                or meta.get("epoch") != 1):
+            raise AssertionError(f"checkpoint step {step} holds {len(params)} tensors of groups "
+                                 f"{ {n.split('.')[0] for n in params} }")
+        kept = [n for n, t in groups["head"].items() if torch.equal(t, head_before[n])]
+        moved = sum(not torch.equal(params[f"head.{n}"], t.float().cpu())
+                    for n, t in head_before.items())
+        st = stats["step_seconds"]
+        med = statistics.median(st[1:])
+        first = stats["metrics"][0]
+        last = stats["metrics"][-1]
+        log(f"[train] tools.train.main, baseline_v4_ov (bf16 Llama-2-7B frozen, head trained), "
+            f"{len(TRAIN_SIZES)} train images at COCO sizes, B=1: {stats['steps']} steps + "
+            f"validation of {n_val} images in {wall:.1f} s; step seconds "
+            + ", ".join(f"{t:.3f}" for t in st) + f"; median of steps 2-8 {med:.3f} s/step "
+            f"({1 / med:.3f} steps/s); peak memory {stats['peak_memory_bytes'] / 2**30:.2f} GiB "
+            f"(training and validation); loss {first['loss']:.4f} -> {last['loss']:.4f}, "
+            f"rel_llm_loss {first['rel_llm_loss']:.4f} -> {last['rel_llm_loss']:.4f}, grad_norm "
+            f"{first['grad_norm']:.4f} -> {last['grad_norm']:.4f}; bf16 head tensors changed "
+            f"{changed}/{len(head_before)} (unchanged: {kept}), float32 master values moved "
+            f"{moved}/{len(head_before)}; frozen groups bitwise unchanged {same}; shared-KV "
+            f"launches {step_launches} in the steps, {by_variant} in all (validation: 2 per "
+            f"image); val {stats['val'][0]}")
+        log(f"[train] checkpoint step {step} (epoch {meta['epoch']}): {len(params)} head tensors, "
+            f"{sum(v.numel() for v in params.values())} float32 values, optimizer moments for the "
+            f"same; files " + ", ".join(f"{f} {b / 2**20:.1f} MiB" for f, b in sizes.items())
+            + f"; total {sum(sizes.values()) / 2**20:.1f} MiB")
+
+        # 8c: restore through the infer tool (exp_tag epoch layout) into a
+        # head reset to its initial values
+        trained = {n: t.detach().clone() for n, t in groups["head"].items()}
+        with torch.no_grad():
+            for n, t in groups["head"].items():
+                t.copy_(head_before[n])
+        os.chdir(root)
+        out = os.path.join(root, "out")
+        fca.reset_launches()
+        i_stats = infer.main([tag, "1", "--test-file", ann, "--data-dir", root, "--output-dir",
+                              out, "--limit", str(n_val)], model=model)
+        os.chdir(cwd)
+        skv["launches_by_path"]["train_restore_infer"] = fca.flash_shared_kv_cross_attn.launches
+        check_variants(dict(fca.flash_shared_kv_cross_attn.launches_by_variant), n_val)
+        restored = all(torch.equal(t, trained[n]) for n, t in groups["head"].items())
+        if not restored or i_stats["n_images"] != n_val:
+            raise AssertionError(f"restored head bitwise equal: {restored}; "
+                                 f"{i_stats['n_images']} images")
+        grading = ["--submission", out, "--gt-json", ann, "--data-dir", root]
+        log(f"[train] infer tool, '{tag} 1' (exp_tag epoch layout): restored head bitwise equal "
+            f"to the trained one; {n_val} images in {i_stats['seconds']:.2f} s; graded "
+            f"{json.dumps(grade.main(grading))} {json.dumps(eval_pq.main(grading))}")
+
+        # the split: 4 more steps with --stage-times (the card synchronized
+        # around each stage), training only
+        s_stats = train.main([cfg_path, "--work-dir", os.path.join(root, "wd_split"),
+                              "--max-steps", "4", "--stage-times"], model=model)
+        rows = s_stats["stage_ms"][1:]
+        split = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+        s_med = statistics.median(s_stats["step_seconds"][1:]) * 1e3
+        log(f"[train] step split, --stage-times, median of steps 2-4 (ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+            + f"; stages sum {sum(split.values()):.1f}, step {s_med:.1f}; peak memory "
+            f"{s_stats['peak_memory_bytes'] / 2**30:.2f} GiB (training only)")
+        log("[train] stats " + json.dumps(dict(
+            step_seconds=st, median_step_seconds=med, steps_per_second=1 / med,
+            peak_memory_gib=stats["peak_memory_bytes"] / 2**30,
+            peak_memory_train_only_gib=s_stats["peak_memory_bytes"] / 2**30,
+            split_ms=split, split_step_ms=s_med, checkpoint_bytes=sizes,
+            metrics=stats["metrics"], val=stats["val"])))
+    finally:
+        V4Trainer.train_step = real_step
+        os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device"]
+__version__ = "0.1.0"
 
 
 def resolve_device(device=None) -> torch.device:

@@ -16,6 +16,9 @@ names mirror the flax names, so the map is mechanical:
   becomes ``weight_q`` ``[out, in]`` (still int8), and the per-channel
   ``scale`` under a quantized projection stays ``scale``.
 
+:func:`jax_paths` runs the map backwards: each port parameter's JAX leaf
+path, which ``paramwise_cfg`` classifies (train/trainer.py).
+
 Accounting is strict: every leaf maps to distinct port parameters and every
 port parameter is filled (``load_state_dict(strict=True)``).  ``text`` is
 the class-name language encoder; ``class_embeds``, the matrix the JAX model
@@ -73,27 +76,71 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
     return name, arr
 
 
-def part_state_dict(part: str, tree) -> Dict[str, np.ndarray]:
-    """One part's flax ``{"params": ...}`` tree → {port parameter name:
-    array}.  Raises on any leaf that would land on a name already taken."""
-    out: Dict[str, np.ndarray] = {}
-
-    def put(name, arr, src):
-        if name in out:
-            raise ValueError(f"{src} collides with another leaf at {part}.{name}")
-        out[name] = np.array(arr, order="C")  # owned, writable copy
-
+def _part_items(part: str, tree) -> Iterator[Tuple[str, np.ndarray, str]]:
+    """(port parameter name, converted array, '/'-joined JAX path under
+    ``params``) for each leaf of one part's tree, scan stacks unstacked."""
     for path, arr in _leaves(tree["params"], (part,)):
         src = "/".join(path)
         scan = next((k for k in SCANNED if path[: len(k)] == k), None)
         if scan is None:
             leaf, conv = _convert_leaf(path, arr)
-            put(".".join(path[1:-1] + (leaf,)), conv, src)
+            yield ".".join(path[1:-1] + (leaf,)), conv, src
             continue
         rest = path[len(scan):]
         for i in range(arr.shape[0]):
             leaf, conv = _convert_leaf(path, arr[i])
-            put(".".join(SCANNED[scan][1:] + (str(i),) + rest[:-1] + (leaf,)), conv, src)
+            yield ".".join(SCANNED[scan][1:] + (str(i),) + rest[:-1] + (leaf,)), conv, src
+
+
+def part_state_dict(part: str, tree) -> Dict[str, np.ndarray]:
+    """One part's flax ``{"params": ...}`` tree → {port parameter name:
+    array}.  Raises on any leaf that would land on a name already taken."""
+    out: Dict[str, np.ndarray] = {}
+    for name, arr, src in _part_items(part, tree):
+        if name in out:
+            raise ValueError(f"{src} collides with another leaf at {part}.{name}")
+        out[name] = np.array(arr, order="C")  # owned, writable copy
+    return out
+
+
+def part_sources(part: str, tree) -> Dict[str, str]:
+    """{port parameter name: the JAX leaf path it comes from} for one part's
+    tree, in :func:`jax_paths`' form (``part/params/...``)."""
+    return {name: part + "/params" + src[len(part):]
+            for name, _, src in _part_items(part, tree)}
+
+
+def _jax_leaf(module: torch.nn.Module, leaf: str) -> str:
+    """The flax leaf name of the port parameter ``leaf`` of ``module``."""
+    if leaf == "weight_q":
+        return "kernel_q"
+    if leaf != "weight":
+        return leaf
+    if isinstance(module, (torch.nn.Linear, torch.nn.Conv2d)):
+        return "kernel"
+    if isinstance(module, torch.nn.Embedding):
+        return "embedding"
+    if isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+        return "scale"
+    return leaf  # RMSNorm's own 'weight
+
+
+def jax_paths(module: torch.nn.Module, part: str) -> Dict[str, str]:
+    """{port parameter name: '/'-joined path of its JAX leaf} for one part's
+    module, as ``jax.tree_util`` spells the path in ``{part: {"params":
+    ...}}`` (a scan stack's layers share their stacked leaf's path)."""
+    modules = dict(module.named_modules())
+    port_scans = {v[1:]: k[1:] for k, v in SCANNED.items() if k[0] == part}
+    out = {}
+    for name, _ in module.named_parameters():
+        *mod_path, leaf = name.split(".")
+        jax_leaf = _jax_leaf(modules[".".join(mod_path)], leaf)
+        path = tuple(mod_path)
+        for port_prefix, jax_prefix in port_scans.items():
+            if path[: len(port_prefix)] == port_prefix:   # drop the layer index
+                path = jax_prefix + path[len(port_prefix) + 1:]
+                break
+        out[name] = "/".join((part, "params") + path + (jax_leaf,))
     return out
 
 

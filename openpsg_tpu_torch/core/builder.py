@@ -45,9 +45,8 @@ def _segmenter_cfg(tpu: Dict[str, Any]) -> SegmenterConfig:
 
 
 def _head_cfg(d: Dict[str, Any], tpu: Dict[str, Any]) -> HeadV4Config:
-    """The inference fields of the JAX ``_head_cfg_from_dict``; its
-    training fields (pair sampling, LLM forward cap) wait for the training
-    slice."""
+    """The JAX ``_head_cfg_from_dict`` (whose ``qformer_neg_over_pos``
+    no JAX caller reads: pairs are sampled at 3 negatives per positive)."""
     if tpu.get("head_preset") == "tiny":
         return HeadV4Config.tiny_test()
     dtype = _dtype(tpu)
@@ -64,6 +63,8 @@ def _head_cfg(d: Dict[str, Any], tpu: Dict[str, Any]) -> HeadV4Config:
         num_relation_classes=len(d.get("relation_classes", [])) or 56,
         max_object_num=d.get("max_object_num", 30),
         rel_cls_type=d.get("rel_cls_type", "binary+multiclass"),
+        sampled_qformer_batch_size=d.get("sampled_qformer_batch_size", 32),
+        max_llm_forward_num=d.get("max_llm_forward_num", 4),
         llm_feature_size=d.get("llm_feature_size", 4096),
         dtype=dtype,
     )

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import importlib
 import os
+import pprint
 import re
 import types
 from typing import Any, Dict
@@ -165,6 +166,13 @@ class Config:
     def to_dict(self) -> Dict[str, Any]:
         return self._cfg.to_dict()
 
+    def dump(self, path: str) -> None:
+        """Write as a Python config file (``name = repr``; configs are
+        plain data), which :meth:`fromfile` reads back."""
+        with open(path, "w", encoding="utf-8") as f:
+            for k, v in self._cfg.to_dict().items():
+                f.write(f"{k} = {pprint.pformat(v, width=100)}\n")
+
 
 def replace_cfg_vals(cfg: Config) -> Config:
     """mmdet's ``${key.path}`` interpolation: a string that IS one
@@ -193,3 +201,27 @@ def replace_cfg_vals(cfg: Config) -> Config:
         return obj
 
     return Config(walk(root), filename=cfg.filename)
+
+
+def update_data_root(cfg: Config) -> Config:
+    """mmdet's ``MMDET_DATASETS`` override: when the environment variable is
+    set, every string containing ``cfg.data_root`` is rewritten onto the new
+    root, and ``data_root`` itself replaced.  No-op without the variable or
+    a ``data_root`` key."""
+    dst = os.environ.get("MMDET_DATASETS")
+    src = cfg.get("data_root")
+    if not dst or not isinstance(src, str) or not src:
+        return cfg
+    dst = dst if dst.endswith("/") else dst + "/"
+    src_norm = src if src.endswith("/") else src + "/"
+
+    def walk(obj):
+        if isinstance(obj, dict):
+            return {k: walk(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(walk(v) for v in obj)
+        if isinstance(obj, str):
+            return obj.replace(src_norm, dst).replace(src.rstrip("/"), dst.rstrip("/"))
+        return obj
+
+    return Config(walk(cfg.to_dict()), filename=cfg.filename)

@@ -78,6 +78,11 @@ AUTO_MB_SIZE = 4
 AUTO_MB_CALIB_K = 4
 AUTO_MB_HYSTERESIS = 2
 
+# the top-level parameter groups, as the JAX ``PSGv4.params`` splits them
+# (psg_v4.py:282-288): four modules and the class-embedding matrix
+MODULE_GROUPS = ("segmenter", "head", "llm", "text")
+GROUPS = MODULE_GROUPS + ("class_embeds",)
+
 
 @dataclasses.dataclass(frozen=True)
 class PSGv4Config:
@@ -244,6 +249,14 @@ class PSGv4:
             with torch.no_grad():
                 self.class_embeds = self.text(torch.from_numpy(
                     encode_names(self.class_names)).to(self.device))
+
+    def param_groups(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{group: {parameter name: tensor}} over :data:`GROUPS`: each
+        module's named parameters, and ``class_embeds`` as its one tensor.
+        The trainer optimizes and the checkpoint saves whole groups."""
+        groups = {g: dict(getattr(self, g).named_parameters()) for g in MODULE_GROUPS}
+        groups["class_embeds"] = {"class_embeds": self.class_embeds}
+        return groups
 
     def _model_hw(self) -> Tuple[int, int]:
         """The model's input bucket: ``input_hw``, else 64² for the tiny

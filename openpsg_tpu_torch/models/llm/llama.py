@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from openpsg_tpu_torch.models.common import mm_f32
 
@@ -219,15 +220,23 @@ class Llama(nn.Module):
 
     def forward(self, input_embeds, attention_mask, positions,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                cache_index: int = 0, key_positions=None, last_logit_only=False):
+                cache_index: int = 0, key_positions=None, last_logit_only=False,
+                remat: bool = False):
         """input_embeds [B, L, D]; attention_mask [B, S] over keys;
         positions [B, L].  Without ``cache``: causal attention among the L
         tokens, returns (logits, (k, v) stacked [n_layers, B, L, kv, hd]).
         With ``cache`` ([n_layers, B, S, kv, hd] each) and ``key_positions``
         [B, S]: the current tokens' slots [cache_index, cache_index + L)
         take keys from this call; those keys are written into ``cache`` in
-        place, which is returned."""
+        place, which is returned.
+
+        ``remat`` (training, no cache): each block runs under activation
+        checkpointing, so the backward recomputes it instead of keeping its
+        activations (the JAX ``LlamaConfig.remat``), and no K/V is kept:
+        returns (logits, None)."""
         c = self.c
+        if remat and cache is not None:
+            raise ValueError("remat is the training forward: it takes no cache")
         B, L, _ = input_embeds.shape
         hd = c.dim // c.n_heads
         dev = input_embeds.device
@@ -253,6 +262,10 @@ class Llama(nn.Module):
         ks, vs = [], []
         for i, layer in enumerate(self.layers):
             ck, cv = (empty, empty) if cache is None else (cache[0][i], cache[1][i])
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, rot, masked_out, ck, cv, use_reentrant=False)[0]
+                continue
             x, k, v = layer(x, rot, masked_out, ck, cv)
             if cache is None:
                 ks.append(k)
@@ -260,7 +273,10 @@ class Llama(nn.Module):
             else:
                 cache[0][i, :, cache_index:cache_index + L] = k
                 cache[1][i, :, cache_index:cache_index + L] = v
-        new_cache = (torch.stack(ks), torch.stack(vs)) if cache is None else cache
+        if remat:
+            new_cache = None
+        else:
+            new_cache = (torch.stack(ks), torch.stack(vs)) if cache is None else cache
         x = self.final_norm(x)
         if last_logit_only:
             x = x[:, -1:]

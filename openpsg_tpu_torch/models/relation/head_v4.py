@@ -26,6 +26,8 @@ class HeadV4Config:
     max_objects_padded: int = 32
     rel_cls_type: str = "binary+multiclass"
     llm_feature_size: int = 4096
+    sampled_qformer_batch_size: int = 32  # training: pairs through the Q-Former
+    max_llm_forward_num: int = 4          # training: pairs through the LLM
     top_pairs: int = 20
     dtype: torch.dtype = torch.float32
 
@@ -38,7 +40,7 @@ class HeadV4Config:
         return HeadV4Config(
             qformer=QFormerConfig.tiny_test(), patch_size=4,
             object_feature_size=16, max_object_num=6, max_objects_padded=8,
-            llm_feature_size=32, top_pairs=4,
+            llm_feature_size=32, top_pairs=4, sampled_qformer_batch_size=8,
         )
 
 
@@ -118,10 +120,12 @@ class RelationHeadV4(nn.Module):
         self.rel_cls_query.normal_(0.0, 1.0, generator=gen)
 
     def forward(self, mask_features, object_masks, object_valid, text_ids, text_mask,
-                plain_attention: bool = False) -> Dict[str, torch.Tensor]:
+                pair_select=None, plain_attention: bool = False) -> Dict[str, torch.Tensor]:
         """mask_features [H4, W4, C]; object_masks [M, H4, W4] bool;
         object_valid [M]; text_ids/text_mask [M², T] (pair-major).
-        ``plain_attention`` forces the plain cross-attention (tests only)."""
+        ``pair_select`` [S] (training): only these pairs go through the
+        Q-Former.  ``plain_attention`` forces the plain cross-attention
+        (tests only)."""
         c = self.cfg
         M = object_masks.shape[0]
         patches = conv_hwc(self.patch_embed, mask_features)       # [hp, wp, C]
@@ -131,6 +135,9 @@ class RelationHeadV4(nn.Module):
         obj = downsample_mask_bilinear(object_masks, (hp, wp)) & object_valid[:, None, None]
         pmask = pair_or_masks(obj.reshape(M, hp * wp)).reshape(M * M, hp * wp)
 
+        if pair_select is not None:
+            sel = pair_select.long()
+            pmask, text_ids, text_mask = pmask[sel], text_ids[sel], text_mask[sel]
         query = torch.cat([self.rel_cls_query, self.relation_query], dim=0)
         queries = query[None].expand(pmask.shape[0], -1, -1)
         qf_out = self.qformer(queries, text_ids, text_mask, patches, pmask,

@@ -26,11 +26,16 @@ from openpsg_tpu_torch.ops.flash_cross_attn import (
 def _shared_kv_attention(q, k, v, mask, plain: bool = False):
     """q [B, H, Lq, hd]; k/v [H, P, hd]; mask [B, P] → [B, H, Lq, hd].
 
-    All-false mask rows are guarded before either path (the kernel would
-    give 0 and the plain softmax the mean of V; the kernel's wrapper guards
-    its own input).  ``plain=True`` forces the plain PyTorch version on any
-    device; it is a test-only switch."""
-    if plain:
+    The JAX package's ``custom_vjp`` (qformer.py:53-80): its forward rule
+    and its backward run the plain reference, so whenever a gradient is
+    taken (grad mode on and q, k or v requiring one) this runs the plain
+    version, forward and backward, after the empty-row guard.  That is the
+    reference's semantics, not a fallback: the kernel is forward only there
+    too.  Otherwise the kernel's wrapper runs (it guards its own input).
+    ``plain=True`` forces the plain version on any device; it is a
+    test-only switch."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if plain or grad:
         return shared_kv_cross_attn_plain(q, k, v, guard_empty_mask(mask))
     return flash_shared_kv_cross_attn(q, k, v, mask)
 

@@ -19,6 +19,11 @@ image-patch keys/values, restricted by a per-pair boolean patch mask.
 A fully masked row gives 0 in the kernel but the mean of V in the plain
 version, so the wrapper first sets such rows to all-true
 (:func:`guard_empty_mask`, the JAX package's ``_guard_empty_mask``).
+
+The kernel is forward only, as the Pallas kernel is: its output carries no
+autograd history.  So the wrapper refuses inputs that require a gradient
+while grad mode is on; a caller that differentiates runs the plain version
+(the Q-Former does, as the JAX package's ``custom_vjp`` does).
 """
 
 from __future__ import annotations
@@ -136,7 +141,12 @@ def flash_shared_kv_cross_attn(q, k, v, mask, variant=None):
     guarded first.  CUDA tensors go to the kernel variant
     :func:`kernel_variant` picks (``variant`` names one instead; the hopper
     variant only where :func:`kernel_variant` allows it); CPU tensors to
-    the plain version."""
+    the plain version.  Raises ``RuntimeError`` when grad mode is on and
+    q, k or v requires a gradient: the kernel's output would have none."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_shared_kv_cross_attn is forward only and would drop the gradient "
+            "of q, k and v; differentiate through shared_kv_cross_attn_plain")
     mask = guard_empty_mask(mask)
     if q.device.type == "cpu":
         return shared_kv_cross_attn_plain(q, k, v, mask)

@@ -1,6 +1,14 @@
 """Validation inference → HiLo submission (counterpart of ``tools/infer.py``).
 
-    python -m openpsg_tpu_torch.tools.infer --config C [--device cpu] ...
+    python -m openpsg_tpu_torch.tools.infer --config C [--checkpoint DIR [--epoch N]]
+        [--device cpu] ...
+    python -m openpsg_tpu_torch.tools.infer <exp_tag> <epoch> ...
+
+A trained model: ``--checkpoint`` names a part-checkpoint directory (the
+train tool's ``<work_dir>/ckpts``) whose trainable groups replace the
+built model's (the latest step, or the one saved for ``epoch``).  The
+positional form reads the config ``./work_dirs/ov_psg_<tag>/<tag>.py`` and,
+given an epoch, the checkpoints beside it in ``ckpts``.
 
 Flow: filter the PSG json to the test images with ≥ 1 relation, resize
 each image keep-ratio into an aspect bucket (square, landscape, portrait;
@@ -80,7 +88,11 @@ class AutoMBController:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m openpsg_tpu_torch.tools.infer")
-    ap.add_argument("--config", required=True)
+    ap.add_argument("exp_tag", nargs="?", default=None)
+    ap.add_argument("epoch", nargs="?", type=int, default=None)
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="part-checkpoint directory whose trainable groups to load")
     ap.add_argument("--test-file", default=None)
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--output-dir", default="./")
@@ -104,6 +116,12 @@ def parse_args(argv=None):
                     help="replace the predicted panoptic masks with the ground "
                          "truth (relation-head upper bound)")
     args = ap.parse_args(argv)
+    if args.config is None:
+        if not args.exp_tag:
+            ap.error("need an exp_tag or --config")
+        args.config = f"./work_dirs/ov_psg_{args.exp_tag}/{args.exp_tag}.py"
+        if args.checkpoint is None and args.epoch is not None:
+            args.checkpoint = f"./work_dirs/ov_psg_{args.exp_tag}/ckpts"
     if args.micro_batch and args.micro_batch < 2:
         ap.error("--micro-batch must be ≥ 2 (1 is the plain per-image path; "
                  "use no flag instead)")
@@ -153,6 +171,15 @@ def main(argv=None, model=None):
         model = build_detector_from_config(cfg, seed=args.seed,
                                            device=resolve_device(args.device))
     print(f"device: {model.device}; image decoder: {image_decoder()}")
+    if args.checkpoint:
+        from openpsg_tpu_torch.train.checkpoint import restore_trainable_for_inference
+
+        if not os.path.isdir(args.checkpoint):
+            raise FileNotFoundError(f"--checkpoint {args.checkpoint}: no such directory")
+
+        step, meta = restore_trainable_for_inference(model, cfg, args.checkpoint,
+                                                     epoch=args.epoch)
+        print(f"restored trainable params from step {step} (epoch {meta.get('epoch')})")
 
     with open(test_file, "r", encoding="utf-8") as f:
         records = submission_records(json.load(f))

@@ -1,0 +1,437 @@
+"""The v4 training step (counterpart of ``openpsg_tpu/train/trainer.py``).
+
+Reference recipe (configs/psg/baseline_v4_ov.py): AdamW lr 1e-4, weight
+decay 0.05, eps 1e-8, betas (0.9, 0.999), gradient clip 0.01, linear warmup
+over 500 iterations from ratio 0.001, lr ×0.1 at epochs 6 and 10.  Frozen:
+the segmenter, the text encoder, the class embeddings and the LLM; the
+relation head trains, its gradient taken through the LLM's teacher-forcing
+loss.
+
+One step, per image: the frozen segmenter runs without autograd; the head
+runs on the sampled pairs (``pair_select``); the LLM runs teacher forcing on
+at most ``max_llm_forward_num`` positive pairs, each block under activation
+checkpointing; each image's losses are backpropagated as they come, scaled
+by 1/B, which sums to the gradient of the per-loss means over the batch
+(the JAX step's vmap then mean).  Then one update of the optax chain the
+JAX package builds (:class:`AdamW`).
+
+Trainable parameters are optimized as float32 values.  Where a module runs
+in bf16 (the head at full width), the optimizer holds float32 master copies
+and writes them, rounded, into the module after each update; the gradient
+is the bf16 cotangent widened to float32, as flax gives it for float32
+parameters cast to bf16 at use.
+
+GT-dependent sampling (32 Q-Former pairs at 3:1 negatives to positives, up
+to 4 positive LLM pairs) runs on the host: :func:`sample_training_pairs`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from openpsg_tpu_torch.bridge import jax_paths
+from openpsg_tpu_torch.models.detectors.psg_v4 import _stage
+from openpsg_tpu_torch.models.relation.head_v4 import assemble_pair_instructions, right_align
+from openpsg_tpu_torch.models.segmenter.openseed import normalize_image
+from openpsg_tpu_torch.train import losses
+
+
+class TrainBatch(NamedTuple):
+    """Static-shape training examples, batched on axis 0."""
+
+    image: torch.Tensor            # [B, H, W, 3] float32 RGB 0-255, padded
+    object_masks: torch.Tensor     # [B, M, H4, W4] bool, stride 4
+    object_labels: torch.Tensor    # [B, M] int32 class ids
+    object_valid: torch.Tensor     # [B, M] bool
+    relation_target: torch.Tensor  # [B, M, M, R] float32 {0, 1}
+    qf_sel_idx: torch.Tensor       # [B, S] int32 pair indices (i * M + j)
+    qf_sel_weight: torch.Tensor    # [B, S] float32 (0 = padding slot)
+    llm_sel_idx: torch.Tensor      # [B, T] int32
+    llm_valid: torch.Tensor        # [B, T] bool
+    llm_label_ids: torch.Tensor    # [B, T, L] int32 (' {rel} </s>' sequences)
+    llm_label_mask: torch.Tensor   # [B, T, L] bool
+
+    @staticmethod
+    def from_numpy(arrays: Dict[str, np.ndarray], device) -> "TrainBatch":
+        return TrainBatch(**{k: torch.as_tensor(np.asarray(arrays[k]), device=device)
+                             for k in TrainBatch._fields})
+
+
+def make_lr_schedule(base_lr: float = 1e-4, warmup_iters: int = 500,
+                     warmup_ratio: float = 1e-3, step_epochs: Tuple[int, ...] = (6, 10),
+                     steps_per_epoch: int = 1000, gamma: float = 0.1) -> Callable[[int], float]:
+    """mmcv's 'step' policy with linear warmup → ``schedule(count)``, in
+    float32 arithmetic as the JAX schedule computes it."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        frac = f32(min(count, warmup_iters)) / f32(warmup_iters)
+        warm = f32(base_lr) * (f32(warmup_ratio) + f32(1.0 - warmup_ratio) * frac)
+        epoch = count // steps_per_epoch
+        decay = f32(gamma) ** f32(sum(epoch >= e for e in step_epochs))
+        return float((warm if count < warmup_iters else f32(base_lr)) * decay)
+
+    return schedule
+
+
+_NORM_PART = re.compile(r"(?:.*_)?ln\d*")
+
+# the groups a v4 config can train: the JAX package always freezes the
+# segmenter, the text encoder and the class embeddings
+TRAINABLE_GROUPS = ("head", "llm")
+
+# Adam's constants in the JAX package's chain (the config's betas and eps
+# are these values)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def paramwise_multipliers(paths: Dict[str, str], custom_keys: Optional[Dict[str, Dict]],
+                          norm_decay_mult: Optional[float] = None):
+    """mmcv ``paramwise_cfg`` over the trainable parameters → ({name:
+    lr_mult}, {name: decay_mult}).  ``paths`` maps each parameter to its
+    JAX leaf path (:meth:`V4Trainer.jax_paths`), which is what the keys are
+    matched against, so each parameter gets its JAX leaf's multipliers.
+
+    ``custom_keys``: {substring: {lr_mult, decay_mult}}; the longest
+    matching key wins.  ``norm_decay_mult`` applies to leaves under a norm
+    (a path component containing 'norm', or 'ln' with an optional prefix
+    ending in '_' and an optional layer index) when no key set a
+    decay_mult."""
+    lr_mult, decay_mult = {}, {}
+    for name, path in paths.items():
+        parts = path.split("/")
+        lr, dec, best = 1.0, None, -1
+        for key, d in (custom_keys or {}).items():
+            if key in path and len(key) > best:
+                best = len(key)
+                lr = float(d.get("lr_mult", 1.0))
+                dec = d.get("decay_mult", None)
+                dec = None if dec is None else float(dec)
+        if dec is None:
+            is_norm = any("norm" in p.lower() or _NORM_PART.fullmatch(p.lower()) is not None
+                          for p in parts[:-1])
+            dec = float(norm_decay_mult) if norm_decay_mult is not None and is_norm else 1.0
+        lr_mult[name], decay_mult[name] = lr, dec
+    return lr_mult, decay_mult
+
+
+class AdamW:
+    """The JAX package's optimizer, optax's chain written out over a dict of
+    float32 parameters (train/trainer.py:173-201), in its order:
+
+    1. clip by global norm: ``(g / norm) * max_norm`` unless norm < max_norm;
+    2. Adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) with bias correction;
+    3. weight decay ``+ weight_decay * decay_mult * p`` (a fractional
+       ``decay_mult`` scales the decay);
+    4. ``* -schedule(count)``, count 0 at the first update;
+    5. ``* lr_mult``.
+
+    ``lr_mult`` / ``decay_mult``: {name: multiplier} from
+    :func:`paramwise_multipliers`, or None."""
+
+    def __init__(self, schedule: Callable[[int], float], max_norm: float = 0.01,
+                 weight_decay: float = 0.05, lr_mult: Optional[Dict[str, float]] = None,
+                 decay_mult: Optional[Dict[str, float]] = None):
+        self.schedule, self.max_norm, self.weight_decay = schedule, max_norm, weight_decay
+        self.lr_mult, self.decay_mult = lr_mult, decay_mult
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        return {"count": 0,
+                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+             state: Dict[str, Any]) -> torch.Tensor:
+        """Update ``params`` and ``state`` in place → the global norm of
+        ``grads`` (before clipping)."""
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        clip = not bool(norm < self.max_norm)
+        count = int(state["count"])
+        t = count + 1
+        bc1 = torch.tensor(1.0 - ADAM_B1 ** t, dtype=torch.float32)
+        bc2 = torch.tensor(1.0 - ADAM_B2 ** t, dtype=torch.float32)
+        step_size = -self.schedule(count)
+        for name, p in params.items():
+            g = grads[name]
+            if clip:
+                g = (g / norm) * self.max_norm
+            mu, nu = state["mu"][name], state["nu"][name]
+            mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
+            nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
+            u = (mu / bc1.to(mu.device)) / (torch.sqrt(nu / bc2.to(nu.device)) + ADAM_EPS)
+            wd = self.weight_decay * (1.0 if self.decay_mult is None else self.decay_mult[name])
+            u = u + wd * p
+            u = torch.tensor(step_size, dtype=u.dtype, device=u.device) * u
+            if self.lr_mult is not None:
+                u = u * self.lr_mult[name]
+            p.add_(u)
+        state["count"] = t
+        return norm
+
+
+def make_optimizer(schedule, max_norm: float = 0.01, weight_decay: float = 0.05,
+                   lr_mult=None, decay_mult=None) -> AdamW:
+    """AdamW with the global-norm clip (baseline_v4_ov.py:150-156)."""
+    return AdamW(schedule, max_norm=max_norm, weight_decay=weight_decay,
+                 lr_mult=lr_mult, decay_mult=decay_mult)
+
+
+class V4Trainer:
+    """The training step of a :class:`~openpsg_tpu_torch.models.detectors.psg_v4.PSGv4`.
+
+    ``trainable``: the groups to optimize, of :data:`TRAINABLE_GROUPS`;
+    the reference freezes the segmenter and the LLM, so ``("head",)``; add
+    ``"llm"`` to fine-tune the language model too (the scratch recipe).
+    The frozen segmenter runs without autograd.  :attr:`master` holds the
+    float32 values the optimizer updates."""
+
+    def __init__(self, pipeline, trainable: Sequence[str] = ("head",),
+                 rel_cls_loss_weight: float = 50.0):
+        unknown = set(trainable) - set(TRAINABLE_GROUPS)
+        if unknown:
+            raise ValueError(f"cannot train {sorted(unknown)}: trainable groups are "
+                             f"{TRAINABLE_GROUPS}")
+        self.pipeline = pipeline
+        self.trainable = tuple(trainable)
+        self.rel_cls_loss_weight = rel_cls_loss_weight
+        self.params: Dict[str, torch.Tensor] = {}   # "group.name" → module parameter
+        self.master: Dict[str, torch.Tensor] = {}   # "group.name" → float32 value
+        groups = pipeline.param_groups()
+        for g in self.trainable:
+            for n, p in groups[g].items():
+                p.requires_grad_(True)
+                self.params[f"{g}.{n}"] = p
+                self.master[f"{g}.{n}"] = p if p.dtype == torch.float32 else p.detach().float()
+
+    def jax_paths(self) -> Dict[str, str]:
+        """{trainable parameter: its JAX leaf path} (for ``paramwise_cfg``)."""
+        out = {}
+        for g in self.trainable:
+            out.update({f"{g}.{n}": path for n, path in
+                        jax_paths(getattr(self.pipeline, g), g).items()})
+        return out
+
+    @torch.no_grad()
+    def load_master(self, values: Dict[str, torch.Tensor]) -> None:
+        """Set the trainable values (float32, e.g. from a checkpoint) and
+        write them into the modules."""
+        if set(values) != set(self.master):
+            raise KeyError(f"checkpoint holds {len(values)} tensors, the trainable "
+                           f"groups {len(self.master)}; differing names: "
+                           f"{sorted(set(values) ^ set(self.master))[:5]}")
+        for n, v in values.items():
+            self.master[n].copy_(v)
+        self._sync_modules()
+
+    @torch.no_grad()
+    def _sync_modules(self) -> None:
+        for n, p in self.params.items():
+            if self.master[n] is not p:
+                p.copy_(self.master[n])
+
+    # ------------------------------------------------------------ one image
+    def loss_single(self, b: TrainBatch, stage_times: Optional[Dict[str, float]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Losses of ONE image (``b``'s fields without the batch axis).
+        ``stage_times`` (a dict) receives wall ms of ``segmenter``,
+        ``head`` and the LLM forward (``llm_fwd_bwd``), synchronizing the
+        card around each."""
+        p = self.pipeline
+        c = p.cfg
+        M, R = c.head.max_objects_padded, c.head.num_relation_classes
+        dev = p.device
+
+        with _stage(stage_times, "segmenter", dev), torch.no_grad():
+            mask_features = p.segmenter(normalize_image(b.image), p.class_embeds)["mask_features"]
+
+        with _stage(stage_times, "head", dev):
+            labels = b.object_labels.long()
+            pair_idx = torch.arange(M * M, device=dev)
+            sub_lab, obj_lab = labels[pair_idx // M], labels[pair_idx % M]
+            text_ids, text_mask = assemble_pair_instructions(p.qf_parts, sub_lab, obj_lab)
+            head_out = p.head(mask_features, b.object_masks, b.object_valid, text_ids,
+                              text_mask, pair_select=b.qf_sel_idx)
+
+            out: Dict[str, torch.Tensor] = {}
+            sel = b.qf_sel_idx.long()
+            sel_target = b.relation_target.reshape(M * M, R)[sel]        # [S, R]
+            w = b.qf_sel_weight
+            if "binary_logits" in head_out:
+                binary_label = (sel_target.sum(-1) > 0).float()
+                out["binary_rel_cls_loss"] = losses.binary_existence_loss(
+                    head_out["binary_logits"], binary_label, w) * self.rel_cls_loss_weight
+            if "multiclass_logits" in head_out:
+                out["multiclass_rel_cls_loss"] = losses.reweighted_mcce(
+                    sel_target, head_out["multiclass_logits"],
+                    sample_weight=w) * self.rel_cls_loss_weight
+
+            # LLM teacher forcing on the selected pairs.  A pair's features
+            # come from the Q-Former sample: zero when the LLM pair was not
+            # sampled (the reference's buffer), averaged over duplicates
+            # (sampling with replacement), padding slots never matched.
+            vis_tokens = head_out["llm_visual_tokens"]                    # [S, Rq, D]
+            llm_sel = b.llm_sel_idx.long()
+            match = ((llm_sel[:, None] == sel[None, :])
+                     & (w[None, :] > 0)).to(vis_tokens.dtype)             # [T, S]
+            match = match / match.sum(-1, keepdim=True).clamp(min=1.0)
+            vis = torch.einsum("ts,srd->trd", match, vis_tokens)          # [T, Rq, D]
+            p_ids, p_mask = assemble_pair_instructions(p.llm_parts, sub_lab[llm_sel],
+                                                       obj_lab[llm_sel])
+            p_ids, p_mask = right_align(p_ids, p_mask)
+            lab_ids, lab_mask = b.llm_label_ids.long(), b.llm_label_mask
+            with torch.set_grad_enabled(torch.is_grad_enabled() and "llm" in self.trainable):
+                emb = p.llm.embed(torch.cat([p_ids, lab_ids], dim=1))
+            T, Rq = vis.shape[:2]
+            full_embeds = torch.cat([vis.to(emb.dtype), emb], dim=1)
+            full_mask = torch.cat([torch.ones(T, Rq, dtype=torch.bool, device=dev),
+                                   p_mask, lab_mask], dim=1)
+            positions = (torch.cumsum(full_mask.to(torch.int32), dim=1) - 1).clamp(min=0)
+
+        with _stage(stage_times, "llm_fwd_bwd", dev):
+            logits, _ = p.llm(input_embeds=full_embeds, attention_mask=full_mask,
+                              positions=positions, remat=True)
+            per_pair = self.llm_pair_ce(logits, lab_ids, lab_mask)
+            lv = b.llm_valid.float()
+            out["rel_llm_loss"] = (per_pair * lv).sum() / lv.sum().clamp(min=1.0)
+        return out
+
+    @staticmethod
+    def llm_pair_ce(logits, lab_ids, lab_mask):
+        """Per-pair mean CE over the label region of teacher-forced logits
+        [T, Rq+Lp+L, V].  The boundary-inclusive shift: logits at positions
+        -(L+1) .. -2 predict label tokens 0 .. L-1, so the first label token
+        (the prompt → label boundary) is trained too."""
+        L = lab_ids.shape[-1]
+        shift_logits = logits[..., -(L + 1):-1, :]
+        mask = lab_mask.float()
+        logp = torch.log_softmax(shift_logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, lab_ids.long()[..., None])[..., 0]
+        return (nll * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
+
+    # ------------------------------------------------------------ the batch
+    def gradients(self, batch: TrainBatch, stage_times: Optional[Dict[str, float]] = None):
+        """Loss means over the batch and their total's gradient → (loss dict
+        of float32 scalars, {name: float32 gradient}).  Each image's losses
+        are backpropagated as they come, scaled by 1/B."""
+        for prm in self.params.values():
+            prm.grad = None
+        B = batch.image.shape[0]
+        sums: Dict[str, torch.Tensor] = {}
+        for i in range(B):
+            out = self.loss_single(TrainBatch(*(t[i] for t in batch)), stage_times)
+            with _stage(stage_times, "llm_fwd_bwd", self.pipeline.device):
+                (sum(out.values()) / B).backward()
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + v.detach().float() / B
+        grads = {}
+        for n, prm in self.params.items():
+            g = prm.grad
+            grads[n] = torch.zeros_like(self.master[n]) if g is None else g.float()
+            prm.grad = None
+        loss_dict = dict(sums)
+        loss_dict["loss"] = sum(sums.values())
+        return loss_dict, grads
+
+    def train_step(self, batch: TrainBatch, optimizer: AdamW, opt_state: Dict[str, Any],
+                   stage_times: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``batch`` → the loss dict plus ``loss``
+        (their sum) and ``grad_norm``.  ``stage_times``: wall ms of
+        segmenter, head, llm_fwd_bwd (LLM forward and the whole backward)
+        and optimizer, the card synchronized around each."""
+        loss_dict, grads = self.gradients(batch, stage_times)
+        with _stage(stage_times, "optimizer", self.pipeline.device):
+            loss_dict["grad_norm"] = optimizer.step(self.master, grads, opt_state)
+            self._sync_modules()
+        return loss_dict
+
+
+# ------------------------------------------------------------- host sampling
+def sample_training_pairs(rng: np.random.Generator, relation_target: np.ndarray,
+                          pair_valid: np.ndarray, sample_size: int = 32,
+                          neg_over_pos: int = 3, llm_pairs: int = 4):
+    """The reference's Q-Former sampler and LLM pair pick, as static-size
+    arrays: relation_target [M, M, R], pair_valid [M*M] → (qf_idx [S],
+    qf_weight [S], llm_idx [T], llm_valid [T]).  Draws from ``rng`` in the
+    JAX package's order, so equal generators give equal indices."""
+    pos = np.nonzero((relation_target.sum(-1).reshape(-1) > 0) & pair_valid)[0]
+    neg = np.nonzero((relation_target.sum(-1).reshape(-1) == 0) & pair_valid)[0]
+    n_pos, n_neg = len(pos), len(neg)
+
+    if n_pos < sample_size:
+        take_pos = pos
+        n_neg_take = min(sample_size - n_pos, max(n_pos, 1) * neg_over_pos)
+        take_neg = neg[rng.integers(0, n_neg, n_neg_take)] if n_neg else np.zeros(0, np.int64)
+    else:
+        take_pos = pos[rng.integers(0, n_pos, sample_size // (neg_over_pos + 1))]
+        n_neg_take = sample_size * neg_over_pos // (neg_over_pos + 1)
+        take_neg = neg[rng.integers(0, n_neg, n_neg_take)] if n_neg else np.zeros(0, np.int64)
+    sel = np.concatenate([take_pos, take_neg]).astype(np.int32)
+    qf_idx = np.zeros(sample_size, np.int32)
+    qf_w = np.zeros(sample_size, np.float32)
+    n = min(len(sel), sample_size)
+    qf_idx[:n] = sel[:n]
+    qf_w[:n] = 1.0
+
+    if n_pos > 0:
+        chosen = rng.permutation(pos)[:llm_pairs]
+    else:
+        cand = np.nonzero(pair_valid)[0]
+        chosen = rng.permutation(cand)[:llm_pairs] if len(cand) else np.zeros(0, np.int64)
+    llm_idx = np.zeros(llm_pairs, np.int32)
+    llm_valid = np.zeros(llm_pairs, bool)
+    llm_idx[: len(chosen)] = chosen
+    llm_valid[: len(chosen)] = True
+    return qf_idx, qf_w, llm_idx, llm_valid
+
+
+def build_llm_labels(tokenizer, relation_names, relation_target: np.ndarray,
+                     llm_idx: np.ndarray, max_len: int):
+    """' {rel} </s>' per positive relation of each selected pair, tokenized
+    and right-padded → (ids [T, max_len] int32, mask [T, max_len] bool)."""
+    M = relation_target.shape[0]
+    texts = []
+    for si in llm_idx:
+        rels = np.nonzero(relation_target.reshape(M * M, -1)[int(si)])[0]
+        texts.append("".join(f" {relation_names[r]} </s>" for r in rels))
+    ids = np.zeros((len(llm_idx), max_len), np.int32)
+    mask = np.zeros((len(llm_idx), max_len), bool)
+    for i, t in enumerate(texts):
+        e = []
+        for piece in t.split("</s>"):
+            piece = piece.strip()
+            if piece:
+                e.extend(tokenizer.encode(piece))
+                e.append(tokenizer.eos_id)
+        e = e[:max_len]
+        ids[i, : len(e)] = e
+        mask[i, : len(e)] = True
+    return ids, mask
+
+
+def host_batch(examples, tokenizer, relation_names, rng: np.random.Generator,
+               sample_size: int, llm_pairs: int, label_len: int) -> Dict[str, np.ndarray]:
+    """Dataset examples (``PSGDataset.load_example`` dicts) → the numpy
+    arrays of a :class:`TrainBatch`, pairs sampled per example in order
+    (3 negatives per positive, as the JAX train tool samples them)."""
+    arrays = {k: np.stack([e[k] for e in examples]) for k in
+              ("image", "object_masks", "object_labels", "object_valid", "relation_target")}
+    arrays["object_labels"] = arrays["object_labels"].astype(np.int32)
+    cols = {k: [] for k in ("qf_sel_idx", "qf_sel_weight", "llm_sel_idx", "llm_valid",
+                            "llm_label_ids", "llm_label_mask")}
+    for e in examples:
+        v = e["object_valid"]
+        M = v.shape[0]
+        pv = np.repeat(v, M) & np.tile(v, M)
+        qi, qw, li, lv = sample_training_pairs(rng, e["relation_target"], pv,
+                                               sample_size=sample_size, llm_pairs=llm_pairs)
+        ids, msk = build_llm_labels(tokenizer, relation_names, e["relation_target"], li,
+                                    label_len)
+        for k, a in zip(cols, (qi, qw, li, lv, ids, msk)):
+            cols[k].append(a)
+    arrays.update({k: np.stack(v) for k, v in cols.items()})
+    return arrays

@@ -1,4 +1,6 @@
-"""Panoptic PNG id encoding (a copy of ``openpsg_tpu/utils/panoptic.py``).
+"""Panoptic PNG id encoding (a copy of ``openpsg_tpu/utils/panoptic.py``),
+and the training loader's mask extraction (the JAX package's
+``native.extract_masks_downsampled``).
 
 Submission PNGs encode segment ids in RGB: ``id = R + 256*G + 256²*B``
 (panopticapi convention).  Colours per segment are drawn from a seedable
@@ -8,7 +10,7 @@ so equal segment ids in ``relation.json``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,3 +44,23 @@ def random_colors(n: int, seed: Optional[int] = None, forbid_black: bool = True)
         seen.add(c)
         out.append(c)
     return np.array(out, dtype=np.uint8)
+
+
+def extract_masks_downsampled(ids: np.ndarray, segment_ids: Sequence[int],
+                              out_hw: Tuple[int, int]) -> np.ndarray:
+    """[h, w] id map + K segment ids → [K, oh, ow] uint8 masks on a nearest
+    grid: output (y, x) samples ``ids[floor((y + 0.5) · h / oh), floor((x +
+    0.5) · w / ow)]`` (clamped), in float64 as the JAX package's native
+    codec and its numpy fallback compute it.  A pixel marks only the first
+    slot that holds its id, as the native codec does when an id repeats."""
+    oh, ow = out_hw
+    h, w = ids.shape
+    sy = np.minimum(((np.arange(oh) + 0.5) * h / oh).astype(np.int64), h - 1)
+    sx = np.minimum(((np.arange(ow) + 0.5) * w / ow).astype(np.int64), w - 1)
+    small = np.asarray(ids)[sy][:, sx]
+    seg = np.asarray(segment_ids, np.int64).reshape(-1)
+    out = np.zeros((len(seg), oh, ow), np.uint8)
+    for k, s in enumerate(seg):
+        if s not in seg[:k]:
+            out[k] = small == s
+    return out

@@ -377,3 +377,46 @@ class TestSharedKVKernelOnCard:
         q, k, v, mask = (t.to(cuda_device) for t in _t(*_skv(6, 2, 2, 3, 16, 10)))
         with pytest.raises(TypeError):
             fca.flash_shared_kv_cross_attn(q.half(), k.half(), v.half(), mask)
+
+
+def _grad_routing(device, dtype):
+    """Gradients through the Q-Former's shared-KV attention on ``device``:
+    the wrapper refuses inputs that require a gradient under grad mode; the
+    Q-Former's ``_shared_kv_attention`` runs the plain version there, with
+    the gradient autograd gives through the plain version, and launches no
+    kernel; without grad mode it goes to the wrapper as before."""
+    from openpsg_tpu_torch.models.relation.qformer import _shared_kv_attention
+
+    q, k, v, mask = _skv(11, 33, 3, 5, 64, 70)
+    mask[::4] = False                                       # empty rows (guarded)
+    q, k, v = (t.to(device=device, dtype=dtype).requires_grad_() for t in _t(q, k, v))
+    mask = torch.from_numpy(mask).to(device)
+    with pytest.raises(RuntimeError, match="gradient"):
+        fca.flash_shared_kv_cross_attn(q, k, v, mask)
+    fca.reset_launches()
+    out = _shared_kv_attention(q, k, v, mask)
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(device, dtype)
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    assert fca.flash_shared_kv_cross_attn.launches == 0
+    want_out = fca.shared_kv_cross_attn_plain(q, k, v, fca.guard_empty_mask(mask))
+    want = torch.autograd.grad(want_out, (q, k, v), ct)
+    assert torch.equal(out, want_out)
+    for g, w in zip(got, want):
+        assert g is not None and torch.equal(g, w) and bool(g.abs().sum() > 0)
+    with torch.no_grad():
+        plain = _shared_kv_attention(q, k, v, mask)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        assert fca.flash_shared_kv_cross_attn.launches == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float((plain.float() - want_out.detach().float()).abs().max()) <= tol
+
+
+def test_attention_gradient_routing_cpu():
+    _grad_routing("cpu", torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradient_routing_on_card(cuda_device, dtype):
+    _grad_routing("cuda", dtype)

@@ -68,7 +68,21 @@ Phases, each fatal on failure:
      validation image; then 4 steps again with ``--stage-times`` for the
      split; (c) ``openpsg_tpu_torch.tools.infer.main`` in the
      ``exp_tag epoch`` layout restoring the trained head bitwise, on the 4
-     val images, its submission graded.
+     val images, its submission graded; (a') the tiny step again through
+     an int8 LLM, weight-only and with int8 activations at >= 256 rows,
+     card vs CPU; (d) the train tool at full width with
+     ``--cfg-options tpu.llm_int8=True``, 2 steps: s/step, peak memory;
+  9. published-format weights and tokenizers at full width, from seeded
+     checkpoints in the reference layouts (an OpenSeeD ``.pt`` with its
+     CLIP text tower, a toy CLIP merges file, a toy SentencePiece
+     ``.model``, a v4 ``PartCheckpointHook`` ``.pth``): the port's
+     ``convert_openseed`` and ``convert_relation``, then the infer tool
+     with ``--config`` (converted segmenter, class embeddings, tokenizer),
+     ``--checkpoint`` and ``--vis`` on 4 of phase 7's images: loaded
+     tensors equal to the converted ones, the raw ``.pt`` loading the same,
+     2 hopper launches per image, 4 overlays and tables, a graded
+     submission; then an HF Llama-2-7B state at full width cut to 2 layers,
+     loaded, converted and quantized, its logits card vs CPU.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -395,6 +409,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
+
     # ---- 1. device line
     smi = smi_line()
     log(f"[device] {smi}")
@@ -501,7 +517,15 @@ def main() -> int:
 
     # ---- 8. training
     phase_train_tiny(torch)
+    for quant in ("weight_only", "act_int8"):
+        phase_train_tiny(torch, quant)
     phase_train(torch, skv, gat)
+    phase_train_int8(torch, skv)
+    torch.cuda.empty_cache()
+
+    # ---- 9. published-format weights and tokenizers
+    phase_weights(torch, skv, gat)
+    log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
         k["launches"] = sum(k["launches_by_path"].values())
@@ -969,17 +993,24 @@ def phase_tool(torch, skv, gat):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_train_tiny(torch):
+def phase_train_tiny(torch, quant=None):
     """Phase 8a: one training step of the tiny config (float32) on the card
     against the CPU, on the same weights and the same seeded batch: the
     losses (TOL_TRAIN_LOSS), every head gradient leaf (TOL_TRAIN_GRAD) and
     the values after the optimizer step (TOL_TRAIN_UPDATE).  The step must
     launch no shared-KV kernel (gradients run the plain attention, as in
     the JAX package) and get a nonzero gradient through the
-    cross-attention's key projection."""
+    cross-attention's key projection.  ``quant``: train through an int8
+    LLM instead, "weight_only" or "act_int8", with 8 LLM pairs per image
+    so that teacher forcing feeds every ``QDense`` at least 256 rows (the
+    int8-activation rule's regime; its input gradient flows only through
+    the per-token scale, as in the JAX package)."""
+    import dataclasses
+
     import numpy as np
 
     from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
+    from openpsg_tpu_torch.models.llm.llama import QDense
     from openpsg_tpu_torch.ops import flash_cross_attn as fca
     from openpsg_tpu_torch.train.trainer import (
         TrainBatch,
@@ -990,6 +1021,11 @@ def phase_train_tiny(torch):
     )
 
     cfg = PSGv4Config.tiny_test()
+    if quant:
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, quant=True, act_int8=quant == "act_int8"),
+            head=dataclasses.replace(cfg.head, max_llm_forward_num=8))
+    tag = f"train-tiny{'-' + quant if quant else ''}"
     cpu = PSGv4(cfg, seed=3, device="cpu")
     gpu = PSGv4(cfg, seed=3, device="cuda")
     for part in ("segmenter", "head", "llm", "text"):
@@ -1010,19 +1046,27 @@ def phase_train_tiny(torch):
             object_valid=valid, relation_target=t))
     arrays = host_batch(examples, cpu.tokenizer, cpu.relation_names, rng,
                         c.head.sampled_qformer_batch_size, c.head.max_llm_forward_num, 12)
-    runs = {}
-    for tag, m in (("cpu", cpu), ("card", gpu)):
+    runs, rows = {}, []
+    for side, m in (("cpu", cpu), ("card", gpu)):
         tr = V4Trainer(m)
         fca.reset_launches()
+        hooks = [q.register_forward_hook(lambda mod, inp, out: rows.append(
+            inp[0].reshape(-1, inp[0].shape[-1]).shape[0]))
+            for q in m.llm.modules() if isinstance(q, QDense) and side == "card"]
         losses, grads = tr.gradients(TrainBatch.from_numpy(arrays, m.device))
+        for h in hooks:
+            h.remove()
         opt = make_optimizer(make_lr_schedule(steps_per_epoch=10))
         opt.step(tr.master, grads, opt.init(tr.master))
-        if tag == "card":
+        if side == "card":
             torch.cuda.synchronize()
             launches = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
-        runs[tag] = ({k: float(v) for k, v in losses.items()},
-                     {n: g.cpu() for n, g in grads.items()},
-                     {n: v.detach().cpu() for n, v in tr.master.items()})
+        runs[side] = ({k: float(v) for k, v in losses.items()},
+                      {n: g.cpu() for n, g in grads.items()},
+                      {n: v.detach().cpu() for n, v in tr.master.items()})
+    if quant and not (rows and min(rows) >= QDense.ACT_INT8_MIN_ROWS):
+        raise AssertionError(f"{tag}: QDense saw {sorted(set(rows))} rows, not all >= "
+                             f"{QDense.ACT_INT8_MIN_ROWS}")
     (l_cpu, g_cpu, v_cpu), (l_card, g_card, v_card) = runs["cpu"], runs["card"]
     loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu)
     largest = max(float(g.abs().max()) for g in g_cpu.values())
@@ -1040,7 +1084,9 @@ def phase_train_tiny(torch):
     ok = (loss_err <= TOL_TRAIN_LOSS and grad_err <= TOL_TRAIN_GRAD
           and upd_err <= TOL_TRAIN_UPDATE and launches == {"simple": 0, "hopper": 0}
           and cross > 0)
-    log(f"[train-tiny] one step, B=2, card vs CPU: losses {l_card} (largest relative "
+    log(f"[{tag}] one step, B=2, card vs CPU"
+        + (f" (int8 LLM, {quant}; QDense rows {sorted(set(rows))})" if quant else "")
+        + f": losses {l_card} (largest relative "
         f"difference {loss_err:.3e}, tol {TOL_TRAIN_LOSS:g}); {len(g_cpu)} head gradient "
         f"leaves, largest difference relative to the leaf {grad_err:.3e} (tol "
         f"{TOL_TRAIN_GRAD:g}; {len(zero_leaves)} leaves 0 up to roundoff: {zero_leaves}); "
@@ -1048,7 +1094,7 @@ def phase_train_tiny(torch):
         f"shared-KV launches {launches}; |grad cross_attn0.k.weight| sum {cross:.4e} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the tiny train step on the card disagrees with the CPU")
+        raise AssertionError(f"{tag}: the tiny train step on the card disagrees with the CPU")
 
 
 # COCO sizes (h, w) of phase 8's fixture: 8 train images, 4 val images
@@ -1207,6 +1253,275 @@ def phase_train(torch, skv, gat):
     finally:
         V4Trainer.train_step = real_step
         os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_int8(torch, skv):
+    """Phase 8d: ``openpsg_tpu_torch.tools.train.main`` at full
+    ``baseline_v4_ov`` width through the int8 Llama-2-7B (``--cfg-options
+    tpu.llm_int8=True``: weight-only, bf16 activations, the card's
+    ``torch.mm(..., out_dtype=float32)`` under autograd), the model built
+    by the tool itself, 2 steps on 2 of phase 8's train images: finite
+    losses, no shared-KV launch; s/step and peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca
+    from openpsg_tpu_torch.tools import train
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_int8_")
+    try:
+        ann = write_png_fixture(root, VAL_SIZES[:1], seed=2, train_sizes=TRAIN_SIZES[:2])
+        cfg_path = os.path.join(root, "int8.py")
+        split = f"dict(ann_file={ann!r}, img_prefix={root!r}, seg_prefix={root!r})"
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                    f"data = dict(train={split}, val={split}, test={split})\n"
+                    "runner = dict(max_epochs=1)\nlog_config = dict(interval=1)\n")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fca.reset_launches()
+        t0 = time.perf_counter()
+        stats = train.main([cfg_path, "--work-dir", os.path.join(root, "wd"), "--max-steps", "2",
+                            "--cfg-options", "tpu.llm_int8=True"])
+        wall = time.perf_counter() - t0
+        launches = fca.flash_shared_kv_cross_attn.launches
+        skv["launches_by_path"]["train_int8_steps"] = launches
+        values = [v for m in stats["metrics"] for v in m.values()]
+        if stats["steps"] != 2 or launches or not all(np.isfinite(values)):
+            raise AssertionError(f"int8 training: {stats['steps']} steps, {launches} shared-KV "
+                                 f"launches, metrics {stats['metrics']}")
+        st = stats["step_seconds"]
+        log(f"[train-int8] tools.train.main, baseline_v4_ov with --cfg-options tpu.llm_int8=True "
+            f"(int8 Llama-2-7B frozen, head trained, built by the tool), B=1: {stats['steps']} "
+            f"steps in {wall:.1f} s with the build; step seconds "
+            + ", ".join(f"{t:.3f}" for t in st) + f" (second step {st[-1]:.3f} s/step); peak "
+            f"memory {stats['peak_memory_bytes'] / 2**30:.2f} GiB; loss "
+            f"{stats['metrics'][0]['loss']:.4f} -> {stats['metrics'][-1]['loss']:.4f}, "
+            f"rel_llm_loss {stats['metrics'][-1]['rel_llm_loss']:.4f}; shared-KV launches "
+            f"{launches}")
+        log("[train-int8] stats " + json.dumps(dict(
+            step_seconds=st, peak_memory_gib=stats["peak_memory_bytes"] / 2**30,
+            metrics=stats["metrics"])))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_weights(torch, skv, gat):
+    """Phase 9: the weights slice at full ``baseline_v4_ov`` width, from
+    seeded checkpoints in the published layouts (nothing is downloaded):
+    an OpenSeeD ``.pt`` (Swin-T, the 6-layer pixel decoder, the 300-query
+    9-layer decoder, the 12-layer CLIP text tower and ``lang_proj``), a toy
+    CLIP merges file, a toy SentencePiece ``.model``, and a reference v4
+    ``PartCheckpointHook`` ``.pth`` at full Q-Former width.  The port's
+    ``convert_openseed`` and ``convert_relation`` convert them; the infer
+    tool runs a config naming the converted segmenter, the class
+    embeddings and the tokenizer, with ``--checkpoint`` and ``--vis``, on 4
+    of phase 7's images.  Checks: every segmenter and head tensor on the
+    card equals the converted value cast to the module's dtype; the raw
+    ``.pt`` loads the same tensors; 2 hopper launches per image; 4
+    overlays and 4 tables; a graded submission.  Then an HF Llama-2-7B
+    state at full width cut to 2 layers (as ``llm_truncate_num`` does),
+    saved as bf16, loaded, converted and quantized: its last-token logits
+    on the card against the CPU within TOL_LOGIT_REL."""
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import openpsg_tpu_torch.core.builder as builder
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.data.vocab import OBJECT_CLASSES, RELATION_CLASSES, clean_name
+    from openpsg_tpu_torch.models.detectors.psg_v4 import LLM_INSTRUCTION, QFORMER_INSTRUCTION
+    from openpsg_tpu_torch.models.llm import weight_convert as lw
+    from openpsg_tpu_torch.models.llm.llama import LlamaConfig, LlamaWithEmbeddings
+    from openpsg_tpu_torch.models.relation.sp_tokenizer import (
+        build_sp_model_bytes,
+        build_toy_llama_tokenizer,
+    )
+    from openpsg_tpu_torch.models.segmenter.openseed import SegmenterConfig
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import convert_openseed, convert_relation, grade, infer
+    from openpsg_tpu_torch.utils import synthetic_weights as syn
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    real_build = builder.build_detector_from_config
+    try:
+        t0 = time.perf_counter()
+        ann = write_png_fixture(root, TOOL_SIZES[:4])          # phase 7's first 4 images
+        merges = syn.write_merges(os.path.join(root, "merges.txt"),
+                                  syn.toy_clip_merges(OBJECT_CLASSES))
+        state = syn.synthetic_openseed_state(SegmenterConfig(), num_lang_layers=12, lang_dim=512,
+                                             vocab=49408, seed=11, fan_in=True)
+        raw_pt = os.path.join(root, "model_state_dict_swint.pt")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}}, raw_pt)
+        n_raw = sum(v.size for v in state.values())
+        del state
+        words = sorted({w for t in [clean_name(n) for n in OBJECT_CLASSES] + RELATION_CLASSES
+                        + [QFORMER_INSTRUCTION, LLM_INSTRUCTION] for w in t.replace("{}", "").split()})
+        sp_model = os.path.join(root, "tokenizer.model")
+        with open(sp_model, "wb") as f:
+            f.write(build_sp_model_bytes(build_toy_llama_tokenizer(words).pieces))
+        conv = os.path.join(root, "openseed_converted")
+        cfg_path = os.path.join(root, "weights.py")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                    f"model = dict(openseed_pretrained_path={os.path.join(conv, 'segmenter.pt')!r},\n"
+                    f"             precomputed_class_embeds={os.path.join(conv, 'class_embeds.npy')!r},\n"
+                    f"             relation_head=dict(tokenizer_path={sp_model!r}))\n"
+                    f"data = dict(test=dict(ann_file={ann!r}, img_prefix={root!r}))\n")
+        head_cfg = builder.resolved_config_from(Config.fromfile(cfg_path))
+        rel = syn.synthetic_relation_v4_state(head_cfg.head, head_cfg.segmenter.mask_dim, seed=12,
+                                              fan_in=True)
+        pth = os.path.join(root, "epoch_1.pth")
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in rel.items()},
+                    "meta": {"epoch": 1}}, pth)
+        t_inputs = time.perf_counter() - t0
+        log(f"[weights] seeded inputs in {t_inputs:.1f} s: OpenSeeD .pt {n_raw:,} values "
+            f"({os.path.getsize(raw_pt) / 2**20:.1f} MiB), v4 relation .pth {len(rel)} tensors "
+            f"({os.path.getsize(pth) / 2**20:.1f} MiB), toy SentencePiece model of "
+            f"{os.path.getsize(sp_model)} bytes, toy CLIP merges")
+
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            convert_openseed.main([raw_pt, "--out", conv, "--merges", merges])
+        t_seg = time.perf_counter() - t0
+        report = [ln for ln in out.getvalue().splitlines() if "level" in ln or "converted" in ln]
+        t0 = time.perf_counter()
+        ckpt = os.path.join(root, "ckpts")
+        with contextlib.redirect_stdout(out):
+            convert_relation.main([pth, "--config", cfg_path, "--out", ckpt, "--verify"])
+        t_rel = time.perf_counter() - t0
+        log(f"[weights] convert_openseed {t_seg:.1f} s (class embeddings on the card), "
+            f"convert_relation --verify {t_rel:.1f} s; report: " + " | ".join(report))
+
+        built = []
+
+        def capture(*a, **kw):
+            built.append(real_build(*a, **kw))
+            return built[-1]
+
+        builder.build_detector_from_config = capture
+        vis_dir, sub_dir = os.path.join(root, "vis"), os.path.join(root, "out")
+        torch.cuda.synchronize()
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            stats = infer.main(["--config", cfg_path, "--checkpoint", ckpt, "--vis", vis_dir,
+                                "--output-dir", sub_dir])
+        t_infer = time.perf_counter() - t0
+        builder.build_detector_from_config = real_build
+        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        skv["launches_by_path"]["weights"] = fca.flash_shared_kv_cross_attn.launches
+        skv["launches_by_variant"]["weights"] = by_variant
+        gat["launches_by_path"]["weights"] = mg.sparse_row_gather.launches
+        check_variants(by_variant, 4)
+        text = printed.getvalue()
+        tables = text.count("| subject")
+        jpgs = sorted(f for f in os.listdir(vis_dir) if f.endswith("_pan_seg.jpg"))
+        if stats["n_images"] != 4 or tables != 4 or len(jpgs) != 4:
+            raise AssertionError(f"{stats['n_images']} images, {tables} tables, overlays {jpgs}")
+
+        model = built[0]
+        from openpsg_tpu_torch.models.relation.sp_tokenizer import SentencePieceTokenizer
+
+        if not isinstance(model.tokenizer, SentencePieceTokenizer):
+            raise AssertionError(f"the LLM tokenizer is {type(model.tokenizer).__name__}")
+
+        def same(module, want, prefix=""):
+            """Names of ``module``'s tensors unequal to ``want`` cast to them."""
+            sd = module.state_dict()
+            names = {k[len(prefix):] for k in want if k.startswith(prefix)}
+            if names != set(sd):
+                return sorted(names ^ set(sd))
+            return [n for n, t in sd.items()
+                    if not torch.equal(t, want[prefix + n].to(t.device, t.dtype))]
+
+        seg_file = torch.load(os.path.join(conv, "segmenter.pt"), weights_only=True)
+        head_file = torch.load(os.path.join(ckpt, "step_0", "params.pt"), weights_only=True)
+        bad_seg, bad_head = same(model.segmenter, seg_file), same(model.head, head_file, "head.")
+        emb = torch.from_numpy(np.load(os.path.join(conv, "class_embeds.npy")))
+        bad_emb = not torch.equal(model.class_embeds.cpu(), emb)
+        loaded = {k: v.clone() for k, v in model.segmenter.state_dict().items()}
+        with torch.no_grad():
+            for p in model.segmenter.parameters():
+                p.zero_()
+        with contextlib.redirect_stdout(io.StringIO()):
+            model.load_segmenter_weights(raw_pt)
+        raw_diff = [n for n, t in model.segmenter.state_dict().items() if not torch.equal(t, loaded[n])]
+        dtypes = sorted({str(t.dtype) for t in model.segmenter.state_dict().values()})
+        if bad_seg or bad_head or bad_emb or raw_diff:
+            raise AssertionError(f"segmenter tensors off {bad_seg[:5]}, head {bad_head[:5]}, class "
+                                 f"embeddings off {bad_emb}, raw .pt vs converted {raw_diff[:5]}")
+        grading = ["--submission", sub_dir, "--gt-json", ann, "--data-dir", root]
+        with contextlib.redirect_stdout(io.StringIO()):
+            graded = grade.main(grading)
+        lines = text.splitlines()
+        top = next(i for i, ln in enumerate(lines) if ln.startswith("| subject"))
+        log(f"[weights] tools.infer --config (converted segmenter, class_embeds.npy, SentencePiece "
+            f"tokenizer) --checkpoint --vis on 4 images: {t_infer:.1f} s with the build, "
+            f"{stats['seconds']:.2f} s for the images; {len(seg_file)} segmenter tensors "
+            f"({dtypes}) and {len(head_file)} head tensors on the card equal to the converted "
+            f"values; class embeddings equal; the raw .pt loads the same segmenter tensors; "
+            f"shared-KV launches {by_variant}; {len(jpgs)} overlays, {tables} tables; graded "
+            f"{json.dumps(graded)}")
+        log("[weights] first table:\n" + "\n".join(lines[max(top - 2, 0):top + 6]))
+        del model, built, loaded
+        torch.cuda.empty_cache()
+
+        # the LLM: an HF Llama-2-7B state at full width, 2 layers
+        t0 = time.perf_counter()
+        lcfg = dataclasses.replace(LlamaConfig.llama2_7b(), n_layers=2)
+        hf = syn.synthetic_hf_state(lcfg, seed=13, fan_in=True)
+        bin_path = os.path.join(root, "pytorch_model.bin")
+        torch.save({k: torch.from_numpy(v).bfloat16() for k, v in hf.items()}, bin_path)
+        del hf
+        t_make = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qcfg = dataclasses.replace(lcfg, quant=True)
+        sd = lw.convert_llama(lw.load_state_dict(bin_path), qcfg)
+        with torch.device("meta"):
+            ref = LlamaWithEmbeddings(qcfg)
+        lw.verify_structure(sd, ref.state_dict())
+        t_conv = time.perf_counter() - t0
+        llms = {}
+        for dev in ("cpu", "cuda"):
+            with torch.device("meta"):
+                m = LlamaWithEmbeddings(qcfg)
+            m.load_state_dict({k: v.to(dev) for k, v in sd.items()}, assign=True)
+            llms[dev] = m.eval()
+        gen = torch.Generator().manual_seed(14)
+        ids = torch.randint(3, lcfg.vocab_size, (2, 12), generator=gen)
+        logits = {}
+        with torch.no_grad():
+            for dev, m in llms.items():
+                i = ids.to(dev)
+                pos = torch.arange(i.shape[1], device=dev)[None].expand_as(i)
+                logits[dev] = m(token_ids=i, attention_mask=torch.ones_like(i, dtype=torch.bool),
+                                positions=pos, last_logit_only=True)[0][:, -1].float().cpu()
+        a, b = logits["cuda"], logits["cpu"]
+        rel_err = float((a - b).abs().max() / b.abs().max())
+        agree = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        ok = rel_err <= TOL_LOGIT_REL and torch.isfinite(a).all()
+        log(f"[weights] HF Llama-2-7B state, 4096 wide, 2 layers: made and saved as bf16 "
+            f"({os.path.getsize(bin_path) / 2**30:.2f} GiB) in {t_make:.1f} s; loaded, converted "
+            f"and quantized in {t_conv:.1f} s ({sum(v.numel() for v in sd.values()):,} values); "
+            f"last-token logits of 2 x 12 tokens, card vs CPU: largest difference "
+            f"{rel_err:.3e} of the largest logit (tol {TOL_LOGIT_REL:g}), argmax equal {agree} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the converted int8 LLM on the card disagrees with the CPU")
+        log(f"[weights] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        builder.build_detector_from_config = real_build
         shutil.rmtree(root, ignore_errors=True)
 
 

@@ -76,12 +76,14 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
     return name, arr
 
 
-def _part_items(part: str, tree) -> Iterator[Tuple[str, np.ndarray, str]]:
+def _part_items(part: str, tree, scanned=None) -> Iterator[Tuple[str, np.ndarray, str]]:
     """(port parameter name, converted array, '/'-joined JAX path under
-    ``params``) for each leaf of one part's tree, scan stacks unstacked."""
+    ``params``) for each leaf of one part's tree, scan stacks unstacked
+    (``scanned``: {flax path prefix: port prefix}, default :data:`SCANNED`)."""
+    scanned = SCANNED if scanned is None else scanned
     for path, arr in _leaves(tree["params"], (part,)):
         src = "/".join(path)
-        scan = next((k for k in SCANNED if path[: len(k)] == k), None)
+        scan = next((k for k in scanned if path[: len(k)] == k), None)
         if scan is None:
             leaf, conv = _convert_leaf(path, arr)
             yield ".".join(path[1:-1] + (leaf,)), conv, src
@@ -89,14 +91,14 @@ def _part_items(part: str, tree) -> Iterator[Tuple[str, np.ndarray, str]]:
         rest = path[len(scan):]
         for i in range(arr.shape[0]):
             leaf, conv = _convert_leaf(path, arr[i])
-            yield ".".join(SCANNED[scan][1:] + (str(i),) + rest[:-1] + (leaf,)), conv, src
+            yield ".".join(scanned[scan][1:] + (str(i),) + rest[:-1] + (leaf,)), conv, src
 
 
-def part_state_dict(part: str, tree) -> Dict[str, np.ndarray]:
+def part_state_dict(part: str, tree, scanned=None) -> Dict[str, np.ndarray]:
     """One part's flax ``{"params": ...}`` tree → {port parameter name:
     array}.  Raises on any leaf that would land on a name already taken."""
     out: Dict[str, np.ndarray] = {}
-    for name, arr, src in _part_items(part, tree):
+    for name, arr, src in _part_items(part, tree, scanned):
         if name in out:
             raise ValueError(f"{src} collides with another leaf at {part}.{name}")
         out[name] = np.array(arr, order="C")  # owned, writable copy
@@ -144,13 +146,13 @@ def jax_paths(module: torch.nn.Module, part: str) -> Dict[str, str]:
     return out
 
 
-def load_part(module: torch.nn.Module, part: str, tree) -> int:
+def load_part(module: torch.nn.Module, part: str, tree, scanned=None) -> int:
     """Load one part (``segmenter``, ``head`` or ``llm``) into its port
-    module; returns the number of JAX leaves used.  Raises on a missing,
-    extra or misshapen parameter."""
+    module, each array cast to its parameter's dtype; returns the number of
+    JAX leaves used.  Raises on a missing, extra or misshapen parameter."""
     ref = module.state_dict()
     sd = {}
-    for name, arr in part_state_dict(part, tree).items():
+    for name, arr in part_state_dict(part, tree, scanned).items():
         if name in ref and tuple(ref[name].shape) != arr.shape:
             raise ValueError(
                 f"{part}.{name}: JAX {arr.shape} vs port {tuple(ref[name].shape)}")

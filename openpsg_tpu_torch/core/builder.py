@@ -6,9 +6,13 @@
 
 :func:`psg_v4_config_from` resolves the config without building weights.
 mmdet-only fields are accepted and ignored; sizing lives under the optional
-``cfg.tpu`` dict, as in the JAX package.  Files the port cannot load yet
-(real tokenizers, a converted OpenSeeD trunk) raise when they exist, naming
-the slice that brings them.
+``cfg.tpu`` dict, as in the JAX package.  Published assets load when their
+paths exist: ``relation_head.tokenizer_path`` / ``llm_model_name`` (the LLM
+tokenizer) and ``qformer_tokenizer_path`` / ``qformer_model_name`` (the
+Q-Former's): a ``.model`` file through the SentencePiece reader, any other
+path through the HF adapter; ``openseed_pretrained_path`` (a reference
+OpenSeeD ``.pt`` or the ``convert_openseed`` tool's ``segmenter.pt``) and
+``precomputed_class_embeds`` (an ``.npy``).
 """
 
 from __future__ import annotations
@@ -19,15 +23,14 @@ from typing import Any, Dict
 
 import torch
 
-from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
+from openpsg_tpu_torch.data.vocab import OBJECT_CLASSES, RELATION_CLASSES
+from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config, resolve_vocabulary
 from openpsg_tpu_torch.models.llm.llama import LlamaConfig
 from openpsg_tpu_torch.models.relation.head_v4 import HeadV4Config
 from openpsg_tpu_torch.models.relation.qformer import QFormerConfig
 from openpsg_tpu_torch.models.segmenter.openseed import SegmenterConfig
 
 CLOSED_SET_TYPES = ("Mask2FormerRelation", "Mask2FormerRelationV2", "OpenSeeDRelation")
-_TOKENIZER_KEYS = ("tokenizer_path", "llm_model_name",
-                   "qformer_tokenizer_path", "qformer_model_name")
 
 
 def _dtype(tpu: Dict[str, Any]) -> torch.dtype:
@@ -115,35 +118,63 @@ def psg_v4_config_from(cfg) -> PSGv4Config:
     return pcfg
 
 
-def build_detector_from_config(cfg, seed: int = 0, device=None) -> PSGv4:
-    """Build the PSG v4 model a config describes, with seeded random
-    weights, on ``device`` (default the card).  The vocabulary comes from
-    ``thing_classes`` / ``stuff_classes`` / ``relation_classes``."""
-    pcfg = psg_v4_config_from(cfg)
-    model_cfg, _, head = _parts(cfg)
-    for key in _TOKENIZER_KEYS:
+def _tokenizer(head: Dict[str, Any], *keys):
+    """The first of ``keys`` naming an existing path → its tokenizer (a
+    ``.model`` file: the SentencePiece reader; else the HF adapter), or
+    None (the closed-vocabulary word tokenizer)."""
+    for key in keys:
         path = head.get(key)
         if path and os.path.exists(str(path)):
-            raise NotImplementedError(
-                f"relation_head.{key} = {path!r} names a tokenizer on disk; the "
-                "PyTorch port loads HF/SentencePiece tokenizers with its tokenizer "
-                "slice (ROADMAP) — clear the field to use the closed-vocabulary "
-                "word tokenizer")
-    seg_path = model_cfg.get("openseed_pretrained_path")
-    if seg_path and os.path.exists(str(seg_path)):
-        raise NotImplementedError(
-            f"openseed_pretrained_path = {seg_path!r}: the PyTorch port loads a "
-            "converted OpenSeeD trunk with its weight-converter slice (ROADMAP)")
-    if seg_path:
-        print(f"[builder] openseed_pretrained_path {seg_path!r} not found — "
-              "using random segmenter init")
+            if str(path).endswith(".model"):
+                from openpsg_tpu_torch.models.relation.sp_tokenizer import (
+                    SentencePieceTokenizer,
+                )
+
+                return SentencePieceTokenizer.from_file(str(path))
+            from openpsg_tpu_torch.models.relation.hf_tokenizer import HFTokenizer
+
+            return HFTokenizer.from_pretrained(str(path))
+    return None
+
+
+def model_kwargs_from(cfg) -> Dict[str, Any]:
+    """The vocabulary (``thing_classes`` / ``stuff_classes`` /
+    ``relation_classes``), the tokenizers and the precomputed class
+    embeddings a config names: :class:`PSGv4`'s keyword arguments besides
+    the config, seed and device."""
+    model_cfg, _, head = _parts(cfg)
     thing = list(model_cfg.get("thing_classes", []) or cfg.get("thing_classes", []))
     stuff = list(model_cfg.get("stuff_classes", []) or cfg.get("stuff_classes", []))
     relations = list(head.get("relation_classes", []) or cfg.get("relation_classes", []))
-    return PSGv4(
-        pcfg, seed=seed, device=device,
+    return dict(
         class_names=(thing + stuff) or None,
         relation_names=relations or None,
         num_things=len(thing) if thing else None,
         precomputed_class_embeds=model_cfg.get("precomputed_class_embeds") or None,
+        tokenizer=_tokenizer(head, "tokenizer_path", "llm_model_name"),
+        qformer_tokenizer=_tokenizer(head, "qformer_tokenizer_path", "qformer_model_name"),
     )
+
+
+def resolved_config_from(cfg) -> PSGv4Config:
+    """The :class:`PSGv4Config` a model built from ``cfg`` holds: the
+    widths its vocabulary and tokenizers set resolved too (what a
+    converted checkpoint must match); builds no weights."""
+    kw = model_kwargs_from(cfg)
+    return resolve_vocabulary(psg_v4_config_from(cfg), kw["class_names"] or OBJECT_CLASSES,
+                              kw["relation_names"] or RELATION_CLASSES, kw["tokenizer"],
+                              kw["qformer_tokenizer"])[0]
+
+
+def build_detector_from_config(cfg, seed: int = 0, device=None) -> PSGv4:
+    """Build the PSG v4 model a config describes on ``device`` (default the
+    card): seeded random weights, then the OpenSeeD trunk that
+    ``openseed_pretrained_path`` names, when it exists."""
+    model = PSGv4(psg_v4_config_from(cfg), seed=seed, device=device, **model_kwargs_from(cfg))
+    seg_path = _parts(cfg)[0].get("openseed_pretrained_path")
+    if seg_path and os.path.exists(str(seg_path)):
+        model.load_segmenter_weights(str(seg_path))
+    elif seg_path:
+        print(f"[builder] openseed_pretrained_path {seg_path!r} not found — "
+              "using random segmenter init")
+    return model

@@ -158,6 +158,32 @@ def select_objects(survive, object_ids, max_objects_padded: int, max_object_num:
     return sel, sel_oid, valid
 
 
+def resolve_vocabulary(cfg: PSGv4Config, class_names: List[str], relation_names: List[str],
+                       tokenizer=None, qformer_tokenizer=None):
+    """The tokenizers (default one word-level prompt tokenizer over the
+    vocabulary for both), their instruction tables, and ``cfg`` with the
+    widths they set: the Q-Former's vocabulary and text length, the LLM's
+    vocabulary, the head's projection width.  → (cfg, tokenizer,
+    qformer tokenizer, Q-Former instruction table, LLM instruction table)."""
+    tokenizer = tokenizer or build_prompt_tokenizer(list(class_names) + list(relation_names))
+    qf_tokenizer = qformer_tokenizer or tokenizer
+    qf_parts = build_instruction_table(qf_tokenizer, class_names, QFORMER_INSTRUCTION,
+                                       MAX_INSTR_LEN)
+    llm_parts = build_instruction_table(tokenizer, class_names, LLM_INSTRUCTION, MAX_PROMPT_LEN)
+    head_cfg = dataclasses.replace(
+        cfg.head, llm_feature_size=cfg.llm.dim,
+        qformer=dataclasses.replace(
+            cfg.head.qformer,
+            vocab_size=max(cfg.head.qformer.vocab_size, qf_tokenizer.vocab_size),
+            max_text_len=qf_parts["max_len"],
+        ),
+    )
+    llm_cfg = dataclasses.replace(cfg.llm, vocab_size=max(cfg.llm.vocab_size,
+                                                          tokenizer.vocab_size))
+    cfg = dataclasses.replace(cfg, head=head_cfg, llm=llm_cfg)
+    return cfg, tokenizer, qf_tokenizer, qf_parts, llm_parts
+
+
 @contextlib.contextmanager
 def _stage(times: Optional[Dict[str, float]], name: str, device: torch.device):
     """Record the stage's wall time in ms (synchronizing the card) when
@@ -181,41 +207,35 @@ class PSGv4:
                  class_names: Optional[List[str]] = None,
                  relation_names: Optional[List[str]] = None,
                  num_things: Optional[int] = None,
-                 precomputed_class_embeds: Optional[str] = None):
+                 precomputed_class_embeds: Optional[str] = None,
+                 tokenizer=None, qformer_tokenizer=None):
         """``class_names`` / ``relation_names``: the vocabulary (default the
         PSG one, 133 object and 56 relation classes); the first
         ``num_things`` classes are things (default 80 for the PSG
-        vocabulary, all of a custom one).  One word-level prompt tokenizer
-        over that vocabulary serves the Q-Former and the LLM.
+        vocabulary, all of a custom one).
         ``precomputed_class_embeds``: an ``.npy`` [classes, proj_dim] used as
-        the class embeddings as it is, in place of the language encoder's."""
+        the class embeddings as it is, in place of the language encoder's.
+        ``tokenizer`` / ``qformer_tokenizer``: anything with the
+        WordTokenizer interface (``vocab_size``, pad/bos/eos ids,
+        ``encode``, ``decode``), e.g. a SentencePiece ``.model``
+        (:mod:`~openpsg_tpu_torch.models.relation.sp_tokenizer`) or an HF
+        tokenizer (:mod:`~openpsg_tpu_torch.models.relation.hf_tokenizer`);
+        default one word-level prompt tokenizer over the vocabulary for
+        both.  Instruction widths, vocabulary sizes and the decode's EOS and
+        pad ids follow them; the LLM ``tokenizer`` drives prompts, labels
+        and the postprocess decode."""
         self.device = resolve_device(device)
-        if not 1 <= cfg.fusion_stride <= 4:
-            # past 4 the stride-4 masks would be downsampled, which the JAX
-            # package does with an antialiasing resize
-            raise ValueError(f"fusion_stride {cfg.fusion_stride}: the port supports 1 to 4")
         self.class_names = list(class_names or OBJECT_CLASSES)
         self.relation_names = list(relation_names or RELATION_CLASSES)
         if num_things is not None:
             self.num_things = num_things
         else:
             self.num_things = NUM_THING_CLASSES if class_names is None else len(self.class_names)
-        self.tokenizer = build_prompt_tokenizer(self.class_names + self.relation_names)
-        self.qf_parts = build_instruction_table(
-            self.tokenizer, self.class_names, QFORMER_INSTRUCTION, MAX_INSTR_LEN)
-        self.llm_parts = build_instruction_table(
-            self.tokenizer, self.class_names, LLM_INSTRUCTION, MAX_PROMPT_LEN)
-        head_cfg = dataclasses.replace(
-            cfg.head, llm_feature_size=cfg.llm.dim,
-            qformer=dataclasses.replace(
-                cfg.head.qformer,
-                vocab_size=max(cfg.head.qformer.vocab_size, self.tokenizer.vocab_size),
-                max_text_len=self.qf_parts["max_len"],
-            ),
-        )
-        llm_cfg = dataclasses.replace(
-            cfg.llm, vocab_size=max(cfg.llm.vocab_size, self.tokenizer.vocab_size))
-        self.cfg = dataclasses.replace(cfg, head=head_cfg, llm=llm_cfg)
+        (self.cfg, self.tokenizer, self.qf_tokenizer, self.qf_parts,
+         self.llm_parts) = resolve_vocabulary(cfg, self.class_names, self.relation_names,
+                                              tokenizer, qformer_tokenizer)
+        # each predicate's token ids under the LLM tokenizer
+        self.relation_token_ids = [self.tokenizer.encode(r) for r in self.relation_names]
         c = self.cfg
 
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -249,6 +269,33 @@ class PSGv4:
             with torch.no_grad():
                 self.class_embeds = self.text(torch.from_numpy(
                     encode_names(self.class_names)).to(self.device))
+
+    @torch.no_grad()
+    def load_segmenter_weights(self, path: str) -> None:
+        """Load an OpenSeeD trunk into the segmenter (the reference loads
+        the published ``model_state_dict_swint_51.2ap.pt``,
+        openseed_relation_v2.py:37-41), each tensor cast to the module's
+        dtype.  ``path`` is a raw reference checkpoint (``backbone.*`` and
+        ``sem_seg_head.*`` keys, or those under ``"model"``), converted on
+        the fly with the conversion report printed; or the ``segmenter.pt``
+        the ``convert_openseed`` tool writes (the port's own parameter
+        names)."""
+        from openpsg_tpu_torch.bridge import load_part
+        from openpsg_tpu_torch.models.llm.weight_convert import to_numpy
+        from openpsg_tpu_torch.models.segmenter.weight_convert import (
+            conversion_report,
+            convert_openseed,
+            load_checkpoint,
+        )
+
+        state = load_checkpoint(path)
+        if not any(k.startswith("sem_seg_head.") for k in state):
+            self.segmenter.load_state_dict(state, strict=True)
+            return
+        state = {k: to_numpy(v) for k, v in state.items()}
+        params, _ = convert_openseed(state, self.cfg.segmenter)
+        print(conversion_report(params, self.cfg.segmenter, state))
+        load_part(self.segmenter, "segmenter", {"params": params})
 
     def param_groups(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """{group: {parameter name: tensor}} over :data:`GROUPS`: each
@@ -291,8 +338,12 @@ class PSGv4:
         if C and C < Qall:
             cand = torch.sort(topk_stable(all_scores, C)[1]).values
             cls_logits, masks_small = cls_logits[cand], masks_small[cand]
+        # jax.image.resize: plain bilinear up to the stride-4 grid; past it
+        # (stride > 4) a shrink, which it antialiases with the triangle
+        # kernel widened by the factor, as torch's antialias does
         masks = torch.nn.functional.interpolate(
-            masks_small[None], size=(Hf, Wf), mode="bilinear", align_corners=False)[0]
+            masks_small[None], size=(Hf, Wf), mode="bilinear", align_corners=False,
+            antialias=Hf < H4 or Wf < W4)[0]
         dev = masks.device
         inside = ((torch.arange(Hf, device=dev)[:, None] * s < int(img_hw[0]))
                   & (torch.arange(Wf, device=dev)[None, :] * s < int(img_hw[1])))

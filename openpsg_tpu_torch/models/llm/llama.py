@@ -92,16 +92,37 @@ def _per_127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.full_like(t, 127.0)
 
 
-def _weight_only_mm(x: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+class _WeightOnlyMM(torch.autograd.Function):
     """x [M, K] times the int8 w_q [N, K] transposed, with w_q in x's type:
     exact products summed and returned in float32 (the JAX einsum's
     ``preferred_element_type=float32``; a bf16 product would round once
-    more before the scale)."""
-    if x.dtype == torch.float32 or not x.is_cuda:
-        return x.float() @ w_q.float().t()
-    # the same sums on the card without widening the weights to float32;
-    # PyTorch's mm with out_dtype has no CPU kernel
-    return torch.mm(x, w_q.to(x.dtype).t(), out_dtype=torch.float32)
+    more before the scale).
+
+    Backward: the input gradient flax takes through that einsum, the
+    float32 cotangent times w_q (exact in float32) summed in float32 and
+    cast to x's type; the frozen int8 weight gets none.  The same Function
+    runs on every device, so the CPU exercises the card's backward."""
+
+    @staticmethod
+    def forward(ctx, x, w_q):
+        ctx.save_for_backward(w_q)
+        ctx.x_dtype = x.dtype
+        if x.dtype == torch.float32 or not x.is_cuda:
+            return x.float() @ w_q.float().t()
+        # the same sums on the card without widening the weights to
+        # float32; PyTorch's mm with out_dtype has no CPU kernel and no
+        # derivative (hence this Function)
+        return torch.mm(x, w_q.to(x.dtype).t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        (w_q,) = ctx.saved_tensors
+        grad_x = (grad_y.float() @ w_q.float()).to(ctx.x_dtype)
+        return grad_x, None
+
+
+def _weight_only_mm(x: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    return _WeightOnlyMM.apply(x, w_q)
 
 
 class QDense(nn.Module):
@@ -114,7 +135,14 @@ class QDense(nn.Module):
     least ``ACT_INT8_MIN_ROWS`` rows (the product of all leading dims of
     x): per-token ``s_x = max(max|x|, 1e-6) / 127``, ``round(x / s_x)``
     (half to even) clipped to ±127, an int8×int8→int32 product, then
-    ``(y · s_x) · scale``."""
+    ``(y · s_x) · scale``.
+
+    Gradients (training through the frozen LLM) are flax's: weight-only,
+    the cotangent times ``weight_q`` (:class:`_WeightOnlyMM`); with int8
+    activations, rounding and the cast to int8 pass none, so the input
+    gradient flows only through ``s_x`` — to each row's largest |x|,
+    shared among ties (a quirk of the JAX ``QDense`` that the port
+    copies)."""
 
     ACT_INT8_MIN_ROWS = 256
 

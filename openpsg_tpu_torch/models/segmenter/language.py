@@ -1,16 +1,20 @@
-"""Class-name language encoder (counterpart of
-``openpsg_tpu/models/segmenter/language.py:30-78``).
+"""Class-name language encoders (counterpart of
+``openpsg_tpu/models/segmenter/language.py``).
 
-``PSGv4`` runs it once at construction: class names are byte-encoded
+``PSGv4`` runs one once at construction: class names are byte-encoded
 (:func:`encode_names`) and the :class:`TextEncoder` gives the unit-norm
 class embedding matrix the query decoder classifies against.  Parameter
 names mirror the flax module's, so :mod:`openpsg_tpu_torch.bridge` maps the
 JAX ``text`` tree onto it.
+
+With published weights the matrix comes instead from OpenSeeD's CLIP text
+tower (:func:`clip_class_embeddings`, run by the ``convert_openseed``
+tool), saved as the ``.npy`` that ``precomputed_class_embeds`` names.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -18,6 +22,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from openpsg_tpu_torch.models.common import LayerNorm
+from openpsg_tpu_torch.models.commons.text_encoder import (
+    BertStyleConfig,
+    BertStyleEncoder,
+    load_tree,
+)
 
 MAX_NAME_LEN = 32
 BYTE_VOCAB = 257  # 256 bytes + padding id 256
@@ -97,3 +106,51 @@ class TextEncoder(nn.Module):
         pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
         pooled = self.proj(pooled).float()
         return pooled / (pooled.norm(dim=-1, keepdim=True) + 1e-6)
+
+
+def clip_text_tower_config(width: int = 512, layers: int = 12, heads: int = 8,
+                           vocab: int = 49408):
+    """BertStyleConfig of the OpenSeeD/CLIP language tower (pre-LN,
+    quickGELU, causal: the OpenAI CLIP text architecture X-Decoder reuses);
+    defaults are CLIP ViT-B's text tower."""
+    return BertStyleConfig(
+        hidden_size=width, num_layers=layers, num_heads=heads,
+        intermediate=4 * width, vocab_size=vocab, max_len=77,
+        pre_ln=True, quick_gelu=True, causal=True, ln_eps=1e-5,
+    )
+
+
+@torch.no_grad()
+def clip_class_embeddings(tower_cfg, tower_params, lang_proj: np.ndarray, tokenizer,
+                          names: List[str], templates: Sequence[str] = ("{}",),
+                          device="cpu") -> np.ndarray:
+    """Class names → unit-norm [N, proj_dim] float32 embeddings, OpenSeeD's
+    ``lang_encoder.get_text_embeddings(thing+stuff)``
+    (openseed_relation_v2.py:59-60): CLIP-BPE tokenize, run the converted
+    CLIP text tower (``tower_params``, the flax-layout tree
+    ``convert_openseed_lang`` gives), take the EOT position (the largest
+    id), project through ``lang_proj``, normalize; several prompt
+    templates are averaged, then renormalized.  Save the result with
+    ``np.save`` for ``precomputed_class_embeds``."""
+    tower_params = dict(tower_params)
+    if "pooler" not in tower_params:
+        # converted CLIP weights have no BERT pooler, which the module
+        # always builds (unused on this path): zeros
+        D = tower_cfg.hidden_size
+        tower_params["pooler"] = {"kernel": np.zeros((D, D), np.float32),
+                                  "bias": np.zeros((D,), np.float32)}
+    with torch.device("meta"):
+        enc = BertStyleEncoder(tower_cfg)
+    enc = enc.to_empty(device=device).eval()
+    load_tree(enc, tower_params)
+    proj = torch.as_tensor(np.asarray(lang_proj, np.float32), device=device)
+    embs = []
+    for tmpl in templates:
+        ids = torch.from_numpy(np.asarray(tokenizer([tmpl.format(n) for n in names]))).to(device)
+        x = enc(token_ids=ids)                                   # [N, 77, D]
+        pooled = x[torch.arange(x.shape[0], device=device), ids.argmax(dim=-1)]
+        emb = pooled.float() @ proj
+        embs.append(emb / (emb.norm(dim=-1, keepdim=True) + 1e-6))
+    out = torch.stack(embs).mean(0)
+    out = out / (out.norm(dim=-1, keepdim=True) + 1e-6)
+    return out.cpu().numpy()

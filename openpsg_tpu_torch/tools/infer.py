@@ -29,6 +29,10 @@ decode steps (:class:`AutoMBController`); ``--no-auto-micro-batch`` pins
 per-image.  A tail chunk is padded with copies of its last image, so every
 chunk has the same size.
 
+``--vis DIR`` writes each image's panoptic overlay as
+``DIR/{stem}_pan_seg.jpg`` and prints its top-20 triplet table (cv2 draws
+the overlay, as in the JAX tool).
+
 Runs on the card unless ``--device cpu`` is given, and raises when asked
 for the card without one.  ``main(argv, model=...)`` takes a ready model
 (e.g. one whose weights came over the bridge) in place of building one.
@@ -112,6 +116,9 @@ def parse_args(argv=None):
                     help="pad every image to the square cap (default: aspect buckets)")
     ap.add_argument("--no-auto-micro-batch", action="store_true",
                     help="pin the flag-free path to per-image inference")
+    ap.add_argument("--vis", default=None, metavar="DIR",
+                    help="write {stem}_pan_seg.jpg overlays to DIR and print each "
+                         "image's top-20 triplet table (needs cv2)")
     ap.add_argument("--gt-masks", action="store_true",
                     help="replace the predicted panoptic masks with the ground "
                          "truth (relation-head upper bound)")
@@ -244,6 +251,8 @@ def main(argv=None, model=None):
             img = load_image_rgb(os.path.join(data_dir, d["file_name"]))
             ex = preproc(img, bucket=bucket)
             ex["ori"] = img.shape[:2]
+            if args.vis:
+                ex["rgb"] = img
             exs.append(ex)
         return exs, time.perf_counter() - t
 
@@ -311,6 +320,15 @@ def main(argv=None, model=None):
                                              ex["ori"]).astype(np.int64)
                     writer.add(pan_ori, res["rel_results"]["object_id_list"],
                                res["rel_results"]["relation"], test_idx=orig_idx)
+                    if args.vis:
+                        from openpsg_tpu_torch.utils.visualize import vis
+
+                        file_name = items[j][1]["file_name"]
+                        _, table = vis(ex["rgb"], pan_ori, res["rel_results"]["object_id_list"],
+                                       res["rel_results"]["relation"], model.class_names,
+                                       model.relation_names, args.vis, file_name)
+                        print(file_name)
+                        print(table)
             if ctrl is not None:
                 for res in results:
                     ctrl.observe(res.get("decode_steps"))

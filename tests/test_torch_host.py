@@ -131,18 +131,47 @@ def test_builder_full_width_resolutions(tmp_path):
 @pytest.mark.parametrize("field", ["llm_model_name", "qformer_tokenizer_path",
                                    "openseed_pretrained_path", "type"])
 def test_builder_refuses_what_waits(tmp_path, field):
+    """The closed-set detector types wait for their slice and are refused;
+    the asset fields, refused until the weights slice, now load what they
+    name: a SentencePiece ``.model`` as the LLM or Q-Former tokenizer, and
+    a reference OpenSeeD ``.pt`` into the segmenter."""
+    from openpsg_tpu_torch.models.relation.sp_tokenizer import (
+        SentencePieceTokenizer,
+        build_sp_model_bytes,
+        build_toy_llama_tokenizer,
+    )
+    from openpsg_tpu_torch.utils.synthetic_weights import synthetic_openseed_state
+
     on_disk = tmp_path / "weights.model"
-    on_disk.write_bytes(b"x")
     if field == "openseed_pretrained_path":
+        on_disk = tmp_path / "openseed.pt"
+        seg_cfg = builder.psg_v4_config_from(
+            Config.fromfile(os.path.join(PORT_CFGS, "tiny_v4_ov.py"))).segmenter
+        state = synthetic_openseed_state(seg_cfg, lang_dim=16)
+        torch.save({k: torch.from_numpy(v) for k, v in state.items()}, on_disk)
         extra = f"model = dict(openseed_pretrained_path={str(on_disk)!r})\n"
     elif field == "type":
         extra = "model = dict(type='Mask2FormerRelation')\n"
     else:
+        toy = build_toy_llama_tokenizer(["person", "dog", "on"])
+        on_disk.write_bytes(build_sp_model_bytes(toy.pieces))
         extra = f"model = dict(relation_head=dict({field}={str(on_disk)!r}))\n"
     p = tmp_path / "cfg.py"
     p.write_text(f"_base_ = ['{PORT_CFGS}/tiny_v4_ov.py']\n{extra}")
-    with pytest.raises(NotImplementedError, match="slice"):
-        builder.build_detector_from_config(Config.fromfile(str(p)), device="cpu")
+    if field == "type":
+        with pytest.raises(NotImplementedError, match="slice"):
+            builder.build_detector_from_config(Config.fromfile(str(p)), device="cpu")
+        return
+    model = builder.build_detector_from_config(Config.fromfile(str(p)), device="cpu")
+    if field == "openseed_pretrained_path":
+        w = model.segmenter.backbone.patch_embed.weight
+        np.testing.assert_array_equal(w.numpy(), state["backbone.patch_embed.proj.weight"])
+    elif field == "llm_model_name":
+        assert isinstance(model.tokenizer, SentencePieceTokenizer)
+        assert model.qf_tokenizer is model.tokenizer
+    else:
+        assert isinstance(model.qf_tokenizer, SentencePieceTokenizer)
+        assert not isinstance(model.tokenizer, SentencePieceTokenizer)
 
 
 # ---------------------------------------------------------- preprocessing

@@ -119,7 +119,13 @@ def test_custom_vocabulary_and_options_match_jax(vocab_pair, hw):
 
 
 def test_fusion_stride_past_4_is_refused():
-    """Past 4 the JAX package downsamples the stride-4 masks with an
-    antialiasing resize, which the port does not copy."""
-    with pytest.raises(ValueError, match="fusion_stride"):
-        PSGv4(dataclasses.replace(PSGv4Config.tiny_test(), fusion_stride=8), device="cpu")
+    """Once refused, a stride past 4 is ported: the stride-4 masks shrink
+    with the antialiased resize the JAX package uses (held against it in
+    tests/test_torch_fusion_stride.py); the id map comes back at the
+    image's resolution, constant on each 8 × 8 cell."""
+    model = PSGv4(dataclasses.replace(PSGv4Config.tiny_test(), fusion_stride=8), device="cpu")
+    img = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (64, 64, 3)).astype(np.uint8))
+    pan = model.fuse_select(model.segment(img), (64, 64))[5]
+    assert pan.shape == (64, 64)
+    cells = pan.reshape(8, 8, 8, 8)
+    assert (cells == cells[:, :1, :, :1]).all()

@@ -197,12 +197,13 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 def test_package_imports_without_jax():
     """Every module of the port, its configs (through ``Config.fromfile``,
-    which runs their ``custom_imports``) and the infer and train tools'
-    ``--help``, with JAX, flax, optax, orbax, the JAX package, cv2 and PIL
-    unimportable."""
+    which runs their ``custom_imports``) and the infer, train and converter
+    tools' ``--help``, with JAX, flax, optax, orbax, the JAX package, cv2,
+    PIL, transformers and safetensors unimportable."""
     code = (
         "import sys, importlib, pkgutil, contextlib, io\n"
-        "BLOCKED = ('jax', 'flax', 'optax', 'orbax', 'openpsg_tpu', 'cv2', 'PIL')\n"
+        "BLOCKED = ('jax', 'flax', 'optax', 'orbax', 'openpsg_tpu', 'cv2', 'PIL', 'transformers',\n"
+        "           'safetensors')\n"
         "for m in BLOCKED:\n"
         "    sys.modules[m] = None\n"
         "import openpsg_tpu_torch\n"
@@ -211,8 +212,9 @@ def test_package_imports_without_jax():
         "from openpsg_tpu_torch.core.config import Config\n"
         "for name in ('baseline_v4_ov.py', 'tiny_v4_ov.py', 'tiny_v4_scratch.py'):\n"
         "    Config.fromfile('openpsg_tpu_torch/configs/psg/' + name)\n"
-        "from openpsg_tpu_torch.tools import infer, train\n"
-        "for tool, flag in ((infer, '--micro-batch'), (train, '--max-steps')):\n"
+        "from openpsg_tpu_torch.tools import convert_openseed, convert_relation, infer, train\n"
+        "for tool, flag in ((infer, '--vis'), (train, '--max-steps'),\n"
+        "                   (convert_openseed, '--merges'), (convert_relation, '--verify')):\n"
         "    with contextlib.redirect_stdout(io.StringIO()) as out:\n"
         "        try:\n"
         "            tool.main(['--help'])\n"

@@ -82,7 +82,24 @@ Phases, each fatal on failure:
      tensors equal to the converted ones, the raw ``.pt`` loading the same,
      2 hopper launches per image, 4 overlays and tables, a graded
      submission; then an HF Llama-2-7B state at full width cut to 2 layers,
-     loaded, converted and quantized, its logits card vs CPU.
+     loaded, converted and quantized, its logits card vs CPU;
+ 10. the closed-set v1-v3 family (``PSGMask2FormerRelation``): (a) tiny
+     float32 models on the card against the CPU on the same weights: v1
+     (attention, einsum, prompt + graph), v2 (all five experts with a text
+     KV store, the gate per pair and per pair and relation), v3 (closed,
+     open vocabulary), through fusion and on ground-truth objects: the
+     selections identical, the top-100 triplets agreeing rank by rank
+     within TOL_FAMILY; (b) full width on seeded random weights:
+     ``baseline_r50.py`` through the infer tool (``--gt-masks --vis``, 4
+     images), then v1, v2 and v3 (``baseline_r50.py``,
+     ``baseline_v2_r50.py``, ``baseline_v3_ov.py``) ``infer`` and
+     ``infer_gt`` (30 objects) on 2 seeded 1344² images each with stage ms
+     per image and peak memory, and the other three full configs built and
+     run once; no shared-KV or gather launch on any of it; (c) the
+     converter chain: a seeded mmdet R50 Mask2Former ``.pth`` and a
+     reference v1 head ``.pth`` through ``convert_mask2former`` and
+     ``convert_relation``, the infer tool with the converted segmenter and
+     ``--checkpoint``, every loaded tensor equal to its converted value.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -525,6 +542,9 @@ def main() -> int:
 
     # ---- 9. published-format weights and tokenizers
     phase_weights(torch, skv, gat)
+
+    # ---- 10. the closed-set v1-v3 family
+    phase_family(torch, skv, gat)
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
@@ -1523,6 +1543,334 @@ def phase_weights(torch, skv, gat):
     finally:
         builder.build_detector_from_config = real_build
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 10
+# tolerance of the closed-set family's tiny float32 models, card vs CPU,
+# relative to the largest triplet score: the same float32 arithmetic
+# summed in another order through the segmenter, the tower and the head
+TOL_FAMILY = 1e-4
+FAMILY_FULL = ("baseline_r50.py", "baseline_v2_r50.py", "baseline_v3_ov.py")
+FAMILY_BUILD_ONLY = ("baseline_r50_prompt.py", "baseline_swin_b.py", "baseline_v3_r50.py")
+
+
+def family_gt_objects(hw, n_obj, M, seed=0):
+    """``n_obj`` disjoint seeded regions (a Voronoi partition of the stride-4
+    grid, upsampled) with seeded classes and mmdet ids, padded to ``M`` →
+    (masks [M, H, W], ids [M], validity [M]), numpy."""
+    import numpy as np
+
+    from openpsg_tpu_torch.data.vocab import INSTANCE_OFFSET, NUM_THING_CLASSES
+
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    seeds = rng.random((n_obj, 2)) * (H // 4, W // 4)
+    yy, xx = np.mgrid[:H // 4, :W // 4]
+    owner = np.argmin((yy[None] - seeds[:, 0, None, None]) ** 2
+                      + (xx[None] - seeds[:, 1, None, None]) ** 2, axis=0)
+    owner = owner.repeat(4, 0).repeat(4, 1)
+    counts, oids = {}, np.zeros(M, np.int64)
+    for i, lab in enumerate(rng.integers(0, 133, n_obj)):
+        inst = counts.get(lab, 0) if lab < NUM_THING_CLASSES else 0
+        counts[lab] = counts.get(lab, 0) + 1
+        oids[i] = int(lab) + INSTANCE_OFFSET * inst
+    masks = np.zeros((M, H, W), bool)
+    masks[:n_obj] = owner[None] == np.arange(n_obj)[:, None, None]
+    return masks, oids, np.arange(M) < n_obj
+
+
+def family_kv(T):
+    """A text KV store with pair and triplet embeddings for some class pairs
+    of :func:`family_gt_objects` (seed 0)'s objects; other keys read 0."""
+    import numpy as np
+
+    from openpsg_tpu_torch.data.text_kv import TextKVStore
+    from openpsg_tpu_torch.data.vocab import OBJECT_CLASSES, RELATION_CLASSES
+
+    rng = np.random.default_rng(5)
+    _, oids, valid = family_gt_objects((64, 64), 6, 8)
+    names = sorted({OBJECT_CLASSES[int(o) % 1000] for o in oids[valid]})
+    table = {}
+    for a in names:
+        for b in names:
+            table[f"{a}#{b}"] = rng.normal(size=T).astype(np.float32)
+            for r in RELATION_CLASSES[::5]:
+                table[f"{a}#{b}#{r}"] = rng.normal(size=T).astype(np.float32)
+    return TextKVStore(embedding_size=T, table=table)
+
+
+def family_cases():
+    """Phase 10a's tiny models: v1 (attention, einsum, prompt + graph), v2
+    (all five experts, the gate per pair and per pair and relation), v3
+    (closed, open vocabulary)."""
+    import dataclasses
+
+    from openpsg_tpu_torch.models.detectors.mask2former_relation import M2FRelationConfig
+    from openpsg_tpu_torch.models.relation.head_v1 import HeadV1Config
+    from openpsg_tpu_torch.models.relation.head_v2 import EXPERT_ORDER, HeadV2Config
+    from openpsg_tpu_torch.models.relation.head_v3 import HeadV3Config
+
+    v3 = HeadV3Config.tiny_test()
+    cases = {
+        "v1 attention": M2FRelationConfig.tiny_test("v1"),
+        "v1 einsum": dataclasses.replace(M2FRelationConfig.tiny_test("v1"),
+                                         head_v1=HeadV1Config.tiny_test(pred_type="einsum")),
+        "v1 prompt+graph": dataclasses.replace(
+            M2FRelationConfig.tiny_test("v1"), head_v1=HeadV1Config.tiny_test(
+                use_relation_prompts=True, fusion_pred_type="einsum_v2",
+                graph_transformer_type="base", use_learnable_prompts=True,
+                learnable_prompts_size=4)),
+        "v2 experts, MoE v1": dataclasses.replace(
+            M2FRelationConfig.tiny_test("v2"),
+            head_v2=HeadV2Config.tiny_test(experts=EXPERT_ORDER, use_moe_gate=True)),
+        "v2 experts, MoE v2": dataclasses.replace(
+            M2FRelationConfig.tiny_test("v2"), head_v2=HeadV2Config.tiny_test(
+                experts=EXPERT_ORDER, use_moe_gate=True, moe_weight_type="v2")),
+        "v3 closed": M2FRelationConfig.tiny_test("v3"),
+        "v3 open vocabulary": dataclasses.replace(
+            M2FRelationConfig.tiny_test("v3"), head_v3=dataclasses.replace(
+                v3, ov_relation=True, llm=dataclasses.replace(v3.llm, causal=False))),
+    }
+    return {k: dataclasses.replace(c, object_mask_thr=0.0, iou_thr=0.1) for k, c in cases.items()}
+
+
+def phase_family_tiny(torch):
+    """Phase 10a: each tiny model of :func:`family_cases` on the card against
+    the CPU, the same weights on both: fusion and selection (or the
+    ground-truth objects) identical, and the top-100 triplets agree rank by
+    rank on the triplet scores relative to the largest (:func:`agree_ranked`,
+    TOL_FAMILY), through fusion on a seeded image and on 6 ground-truth
+    objects."""
+    import numpy as np
+
+    from openpsg_tpu_torch.models.detectors.mask2former_relation import PSGMask2FormerRelation
+    from openpsg_tpu_torch.models.relation.head_v4 import topk_stable
+
+    img = np.random.default_rng(5).integers(0, 256, (64, 64, 3)).astype(np.float32)
+    gt = family_gt_objects((64, 64), 6, 8)
+    for name, cfg in family_cases().items():
+        kv = family_kv(cfg.head_v2.text_embedding_size) if cfg.head_version == "v2" else None
+        cpu = PSGMask2FormerRelation(cfg, seed=3, device="cpu", text_kv=kv)
+        gpu = PSGMask2FormerRelation(cfg, seed=3, device="cuda", text_kv=kv)
+        gpu.segmenter.load_state_dict(cpu.segmenter.state_dict())
+        gpu.head.load_state_dict(cpu.head.state_dict())
+        gpu.object_cls_embed = cpu.object_cls_embed.cuda()
+        for kind in ("fusion", "gt"):
+            sels, probs = [], []
+            for m in (cpu, gpu):
+                image = torch.as_tensor(img, device=m.device)
+                seg = m.segment(image)
+                sel = (m.fuse_select(seg, image.shape[:2], (60, 64)) if kind == "fusion"
+                       else m.gt_select(seg, *gt))
+                sels.append([t.cpu() for t in sel])
+                probs.append(m.triplet_probs(seg["mask_features"], sel[0], sel[2], sel[3],
+                                             sel[4]).cuda())
+            (mc, oc, vc, lc, sc, pc), (mg, og, vg, lg, sg, pg) = sels
+            for a, b, what in ((mc, mg, "object masks"), (oc, og, "ids"), (vc, vg, "validity"),
+                               (lc, lg, "labels"), (pc, pg, "pan map")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"[family] {name} {kind}: {what} differ card vs CPU")
+            if not torch.allclose(sc, sg, rtol=TOL_FAMILY, atol=1e-6):
+                raise AssertionError(f"[family] {name} {kind}: object scores differ")
+            scale = probs[0].abs().max().clamp(min=1e-30)
+            full_g, full_c = (probs[1] / scale).flatten(), (probs[0] / scale).flatten()
+            log(f"[family] {name} {kind}: {int(vc.sum())} objects")
+            agree_ranked(torch, f"family {name} {kind} top-100 (card vs CPU)", TOL_FAMILY,
+                         topk_stable(full_g, 100)[1], topk_stable(full_c, 100)[1],
+                         full_g, full_c)
+
+
+def phase_family_full(torch, skv, gat, root, ann):
+    """Phase 10b: the full-width family on seeded random weights, launch
+    counts read around all of it: ``baseline_r50.py`` through the infer tool
+    (``--gt-masks --vis``, phase 7's 4 square images); then for v1, v2 and
+    v3 (``baseline_r50.py``, ``baseline_v2_r50.py``, ``baseline_v3_ov.py``)
+    ``infer`` on 2 seeded 1344² images and ``infer_gt`` on the same images
+    with 30 seeded objects: stage ms per image, peak memory, objects kept by
+    fusion; the other three full configs are built and run once."""
+    import numpy as np
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import infer
+
+    cfgs = os.path.join(HERE, "openpsg_tpu_torch", "configs", "psg")
+    rng = np.random.default_rng(7)
+    H, W = BUCKET
+    hws = [(H, W), (1200, 1344)]
+    images = [rng.integers(0, 256, (H, W, 3)).astype(np.float32) for _ in hws]
+    torch.cuda.synchronize()
+    fca.reset_launches()
+    mg.sparse_row_gather.launches = 0
+    stats_out = {}
+    for name in FAMILY_FULL + FAMILY_BUILD_ONLY:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = build_detector_from_config(Config.fromfile(os.path.join(cfgs, name)), seed=0)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        weights = torch.cuda.memory_allocated() / 2**30
+        if name in FAMILY_BUILD_ONLY:
+            t0 = time.perf_counter()
+            res = model.infer(images[0], hws[0])
+            check_result(res, BUCKET)
+            log(f"[family] {name} (head {model.cfg.head_version}, {model.cfg.segmenter.backbone}):"
+                f" built in {built:.1f} s, weights {weights:.2f} GiB; one infer "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call)")
+            del model
+            continue
+        if name == "baseline_r50.py":
+            out, vis = os.path.join(root, "family_out"), os.path.join(root, "family_vis")
+            st = infer.main(["--config", os.path.join(cfgs, name), "--test-file", ann,
+                             "--data-dir", root, "--output-dir", out, "--gt-masks",
+                             "--vis", vis], model=model)
+            with open(st["submission"], encoding="utf-8") as f:
+                recs = json.load(f)
+            if (len(recs) != 4 or any(len(r["segments_info"]) != 3 or not r["relations"]
+                                      for r in recs) or len(os.listdir(vis)) != 4):
+                raise AssertionError("family tool run: expected 4 records of 3 GT segments "
+                                     "with relations and 4 overlays")
+            log(f"[family] {name} through the infer tool (--gt-masks --vis, 4 images): "
+                f"{st['seconds']:.2f} s; model {sum(st['sections']['model']) / 4 * 1e3:.1f} ms "
+                f"per image; {sum(len(r['relations']) for r in recs)} relations written")
+        gt = family_gt_objects(BUCKET, model.cfg.max_objects, model.cfg.max_objects_padded)
+        model.infer(images[0], hws[0])            # warm-up, not counted
+        model.infer_gt(images[0], *gt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per = []
+        for img, hw in zip(images, hws):
+            times = {}
+            t0 = time.perf_counter()
+            res = model.infer(img, hw, stage_times=times)
+            times["total"] = (time.perf_counter() - t0) * 1e3
+            check_result(res, BUCKET)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res_gt = model.infer_gt(img, *gt)
+            times["infer_gt"] = (time.perf_counter() - t0) * 1e3
+            want = [int(o) for o in gt[1][gt[2]]]
+            if (res_gt["rel_results"]["object_id_list"] != want
+                    or len(res_gt["rel_results"]["relation"]) != 100
+                    or np.isnan(res_gt["rel_scores"]).any()):
+                raise AssertionError(f"{name}: infer_gt result malformed")
+            # exp of random-weight scores may overflow (v2's expert is unscaled)
+            times["gt_inf_scores"] = int(np.isinf(res_gt["rel_scores"]).sum())
+            times["fusion_objects"] = len(res["rel_results"]["object_id_list"])
+            per.append(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats_out[name] = dict(built_s=built, weights_gib=weights, peak_gib=peak, per_image=per)
+        log(f"[family] {name} (head {model.cfg.head_version}, {model.cfg.segmenter.backbone}, "
+            f"{model.cfg.segmenter.dtype}): built in {built:.1f} s, weights {weights:.2f} GiB, "
+            f"peak {peak:.2f} GiB; per image " + "; ".join(
+                ", ".join(f"{k} {v}" if isinstance(v, int) else f"{k} {v:.1f} ms"
+                          for k, v in t.items()) for t in per))
+        del model
+    n_skv = fca.flash_shared_kv_cross_attn.launches
+    n_gat = mg.sparse_row_gather.launches
+    skv["launches_by_path"]["family"] = n_skv
+    gat["launches_by_path"]["family"] = n_gat
+    log(f"[family] flash_shared_kv_cross_attn launches {n_skv}, sparse_row_gather launches "
+        f"{n_gat} on the family's paths")
+    if n_skv or n_gat:
+        raise AssertionError("the closed-set family's paths launched a kernel")
+    log("[family] stats " + json.dumps(stats_out))
+
+
+def phase_family_weights(torch, root, ann):
+    """Phase 10c: the converter chain at full width: a seeded mmdet-layout
+    Mask2Former R50 ``.pth`` (the published geometry, encoder FFN 1024)
+    through ``convert_mask2former``, a seeded reference v1 head
+    ``PartCheckpointHook`` ``.pth`` through ``convert_relation --verify``;
+    then the infer tool on ``baseline_r50.py`` (its pixel-decoder FFN set to
+    the published 1024) with the converted ``segmenter_pretrained_path`` and
+    ``--checkpoint``, ``--gt-masks``, on phase 7's 4 square images.  Every
+    loaded tensor equals its converted value in the model's dtype; the raw
+    ``.pth`` loads the same segmenter."""
+    import numpy as np
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config, m2f_relation_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.models.segmenter.mask2former import Mask2FormerConfig
+    from openpsg_tpu_torch.tools import convert_mask2former, convert_relation, infer
+    from openpsg_tpu_torch.utils.synthetic_weights import (
+        synthetic_mask2former_state,
+        synthetic_relation_v1_state,
+    )
+
+    t_phase = time.perf_counter()
+    to_pt = lambda st: {k: torch.from_numpy(v) for k, v in st.items()}
+    m2f = os.path.join(root, "mask2former_r50.pth")
+    torch.save({"state_dict": to_pt(synthetic_mask2former_state(
+        Mask2FormerConfig(backbone="r50", enc_ffn_hidden=1024), seed=11, fan_in=True))}, m2f)
+    seg_pt = os.path.join(root, "m2f_conv", "segmenter.pt")
+    cfg_file = os.path.join(root, "converted.py")
+    with open(cfg_file, "w", encoding="utf-8") as f:
+        f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_r50.py')!r}]\n"
+                f"model = dict(segmenter_pretrained_path={seg_pt!r}, panoptic_head=dict("
+                "pixel_decoder=dict(encoder=dict(transformerlayers=dict(ffn_cfgs=dict("
+                "feedforward_channels=1024))))))\n")
+    convert_mask2former.main([m2f, "--out", os.path.dirname(seg_pt)])
+    cfg = Config.fromfile(cfg_file)
+    mcfg = m2f_relation_config(cfg)
+    head_pth = os.path.join(root, "epoch_12.pth")
+    torch.save({"state_dict": to_pt(synthetic_relation_v1_state(
+        mcfg.head_v1, mcfg.segmenter.mask_dim, 133, fan_in=True)), "meta": {"epoch": 12}},
+        head_pth)
+    ckpts = os.path.join(root, "v1_ckpts")
+    convert_relation.main([head_pth, "--config", cfg_file, "--out", ckpts, "--verify"])
+    model = build_detector_from_config(cfg, seed=0)
+    st = infer.main(["--config", cfg_file, "--test-file", ann, "--data-dir", root,
+                     "--output-dir", os.path.join(root, "v1_out"), "--checkpoint", ckpts,
+                     "--gt-masks"], model=model)
+    seg_state = torch.load(seg_pt, weights_only=True)
+    params = torch.load(os.path.join(ckpts, "step_0", "params.pt"), weights_only=True)
+    groups = model.param_groups()
+    n = 0
+    for name, value in list(seg_state.items()) + list(params.items()):
+        group, pname = ("segmenter", name) if name in seg_state else name.split(".", 1)
+        have = groups[group][pname]
+        if not torch.equal(have, value.to(have.device, have.dtype)):
+            raise AssertionError(f"{group}.{pname} differs from its converted value")
+        n += 1
+    if n != sum(len(g) for g in groups.values()):
+        raise AssertionError(f"{n} converted tensors for {sum(len(g) for g in groups.values())}")
+    raw = build_detector_from_config(Config.fromfile(cfg_file), seed=1)
+    raw.load_segmenter_weights(m2f)
+    for k, v in raw.segmenter.state_dict().items():
+        if not torch.equal(v, model.segmenter.state_dict()[k]):
+            raise AssertionError(f"raw .pth and segmenter.pt differ at {k}")
+    with open(st["submission"], encoding="utf-8") as f:
+        recs = json.load(f)
+    if len(recs) != 4 or any(len(r["segments_info"]) != 3 for r in recs):
+        raise AssertionError("converted-weights tool run: malformed submission")
+    log(f"[family] converter chain at full width: mmdet R50 Mask2Former ({len(seg_state)} "
+        f"tensors) and a v1 head checkpoint ({len(params)} tensors) converted, loaded by the "
+        f"infer tool ({n} tensors, each equal to its converted value in the model's dtype; "
+        f"the raw .pth loads the same segmenter); {st['n_images']} images in "
+        f"{st['seconds']:.2f} s; phase in {time.perf_counter() - t_phase:.1f} s")
+    del model, raw
+
+
+def phase_family(torch, skv, gat):
+    """Phase 10: the closed-set v1-v3 family (:func:`phase_family_tiny`,
+    :func:`phase_family_full`, :func:`phase_family_weights`)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    phase_family_tiny(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    try:
+        ann = write_png_fixture(root, TOOL_SIZES[:4])
+        phase_family_full(torch, skv, gat, root, ann)
+        torch.cuda.empty_cache()
+        phase_family_weights(torch, root, ann)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[family] phase 10 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def compare_runs(torch, tag, a, b):

@@ -161,9 +161,52 @@ def load_part(module: torch.nn.Module, part: str, tree, scanned=None) -> int:
     return sum(1 for _ in _leaves(tree["params"]))
 
 
+def scan_prefixes(module: torch.nn.Module, part: str) -> Dict[Tuple[str, ...], Tuple[str, ...]]:
+    """The ``scanned=`` map of one part of a model whose every ``layers``
+    ModuleList is a flax ``nn.scan`` stack at the same path (the
+    closed-set family: BERT towers, the Llama trunk, the graph transformer,
+    the masked-attention decoder), and the pixel decoder's, whose flax
+    stack sits one scope deeper (``layers/layer``)."""
+    out = {}
+    for name, sub in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if path and path[-1] == "layers" and isinstance(sub, torch.nn.ModuleList):
+            flax = (part,) + path
+            if path[-2:] == ("pixel_decoder", "layers"):
+                flax = flax + ("layer",)
+            out[flax] = (part,) + path
+    return out
+
+
+def load_family_params(model, params) -> Dict[str, object]:
+    """Load a JAX ``PSGMask2FormerRelation.params`` tree (numpy leaves:
+    ``segmenter``, ``head``, ``object_cls_embed``) into the port's model of
+    the closed-set family.  Returns a report: leaves used per part."""
+    unknown = set(params) - {"segmenter", "head", "object_cls_embed"}
+    if unknown:
+        raise KeyError(f"unexpected top-level keys {sorted(unknown)}")
+    report = {"used": {}}
+    for part in ("segmenter", "head"):
+        module = getattr(model, part)
+        report["used"][part] = load_part(module, part, params[part],
+                                         scanned=scan_prefixes(module, part))
+    emb = np.array(params["object_cls_embed"], dtype=np.float32)
+    if tuple(model.object_cls_embed.shape) != emb.shape:
+        raise ValueError(f"object_cls_embed: JAX {emb.shape} vs port "
+                         f"{tuple(model.object_cls_embed.shape)}")
+    with torch.no_grad():
+        model.object_cls_embed.copy_(torch.from_numpy(emb))
+    report["used"]["object_cls_embed"] = 1
+    return report
+
+
 def load_jax_params(model, params) -> Dict[str, object]:
     """Load a JAX ``PSGv4.params`` tree (numpy leaves) into a port
-    ``PSGv4``.  Returns a report: leaves used per part."""
+    ``PSGv4``, or a ``PSGMask2FormerRelation.params`` tree into the port's
+    model of the closed-set family (:func:`load_family_params`).  Returns
+    a report: leaves used per part."""
+    if "object_cls_embed" in params:
+        return load_family_params(model, params)
     unknown = set(params) - set(MODULE_PARTS) - {"class_embeds"}
     if unknown:
         raise KeyError(f"unexpected top-level keys {sorted(unknown)}")

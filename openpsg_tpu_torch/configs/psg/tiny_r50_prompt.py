@@ -1,0 +1,6 @@
+# The PyTorch/CUDA port's copy of configs/psg/tiny_r50_prompt.py;
+# every other field is the same.
+# Tiny smoke variant of the v1 predicate-prompt path.
+_base_ = ['baseline_r50_prompt.py']
+tpu = dict(_delete_=True, segmenter_preset='tiny', head_preset='tiny',
+           llm_preset='tiny', bf16=False, mesh=dict(dp=8, tp=1))

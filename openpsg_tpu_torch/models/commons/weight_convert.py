@@ -18,9 +18,10 @@ commons.text_encoder.load_tree` loads it into the port's module.
 
 Truncation = take the first ``num_layers`` stacked layers.
 ``convert_clip_text`` maps HF CLIPTextModel onto the pre-LN variant
-(``BertStyleConfig(pre_ln=True, quick_gelu=True)``).  The closed-set
-heads' ``convert_torch_decoder`` and ``convert_interactive_fusion`` come
-with the closed-set slice.
+(``BertStyleConfig(pre_ln=True, quick_gelu=True)``).
+``convert_torch_decoder`` maps torch's ``nn.TransformerDecoder`` onto the
+graph transformer's decoders, ``convert_interactive_fusion`` the
+reference's InteractiveFusionModule.
 """
 
 from __future__ import annotations
@@ -226,3 +227,121 @@ def convert_clip_text(
             "bias": g("final_layer_norm.bias"),
         },
     }
+
+
+def convert_torch_decoder(
+    state: Mapping[str, np.ndarray],
+    prefix: str,
+    num_layers: int,
+    dim: int,
+) -> Dict[str, Any]:
+    """``nn.TransformerDecoder`` state → our TorchTransformerDecoder
+    (graph_transformer.py).  Splits MultiheadAttention's packed
+    ``in_proj_weight`` [3D, D] into q/k/v Dense kernels."""
+
+    def lw(i, k):
+        return np.asarray(state[f"{prefix}layers.{i}.{k}"])
+
+    def stack(fn):
+        return np.stack([fn(i) for i in range(num_layers)], 0)
+
+    def mha(torch_name):
+        def part(j, bias=False):
+            if bias:
+                return stack(
+                    lambda i: lw(i, f"{torch_name}.in_proj_bias")[
+                        j * dim:(j + 1) * dim]
+                )
+            return stack(
+                lambda i: _t(
+                    lw(i, f"{torch_name}.in_proj_weight")[
+                        j * dim:(j + 1) * dim]
+                )
+            )
+
+        return {
+            "q": {"kernel": part(0), "bias": part(0, bias=True)},
+            "k": {"kernel": part(1), "bias": part(1, bias=True)},
+            "v": {"kernel": part(2), "bias": part(2, bias=True)},
+            "out": {
+                "kernel": stack(lambda i: _t(lw(i, f"{torch_name}.out_proj.weight"))),
+                "bias": stack(lambda i: lw(i, f"{torch_name}.out_proj.bias")),
+            },
+        }
+
+    def ln(torch_name):
+        return {
+            "scale": stack(lambda i: lw(i, f"{torch_name}.weight")),
+            "bias": stack(lambda i: lw(i, f"{torch_name}.bias")),
+        }
+
+    return {
+        "layers": {
+            "self_attn": mha("self_attn"),
+            "cross_attn": mha("multihead_attn"),
+            "ln1": ln("norm1"),
+            "ln2": ln("norm2"),
+            "ln3": ln("norm3"),
+            "ffn_up": {
+                "kernel": stack(lambda i: _t(lw(i, "linear1.weight"))),
+                "bias": stack(lambda i: lw(i, "linear1.bias")),
+            },
+            "ffn_down": {
+                "kernel": stack(lambda i: _t(lw(i, "linear2.weight"))),
+                "bias": stack(lambda i: lw(i, "linear2.bias")),
+            },
+        }
+    }
+
+
+def convert_interactive_fusion(
+    state: Mapping[str, np.ndarray],
+    prefix: str,
+    pred_type: str,
+    output_size: int,
+    num_gt_layers: int = 3,
+) -> Dict[str, Any]:
+    """Reference ``InteractiveFusionModule`` state → our params
+    (interactive_fusion_module.py:8-26).  Detects the graph-transformer
+    variant from the checkpoint keys (cls_s is an MLP there, a plain
+    Linear otherwise)."""
+
+    def dense(base):
+        return {"kernel": _t(np.asarray(state[base + ".weight"])),
+                "bias": np.asarray(state[base + ".bias"])}
+
+    def ref_mlp(base):
+        return {
+            "fc1": dense(base + ".fc1"),
+            "act": {"scale": np.asarray(state[base + ".act.weight"]),
+                    "bias": np.asarray(state[base + ".act.bias"])},
+            "fc2": dense(base + ".fc2"),
+        }
+
+    g = lambda k: prefix + k
+    has_graph = g("fc_node.weight") in state
+    out: Dict[str, Any] = {}
+    if has_graph:
+        out["fc_node"] = dense(g("fc_node"))
+        out["fc_edge"] = dense(g("fc_edge"))
+        out["graph"] = {
+            "edge2node": convert_torch_decoder(
+                state, g("graph_transformer.edge2node_decoder."),
+                num_gt_layers, output_size,
+            ),
+            "node2edge": convert_torch_decoder(
+                state, g("graph_transformer.node2edge_decoder."),
+                num_gt_layers, output_size,
+            ),
+        }
+        out["cls_s"] = ref_mlp(g("cls_s"))
+        out["cls_o"] = ref_mlp(g("cls_o"))
+        out["cls_r"] = ref_mlp(g("cls_r"))
+    else:
+        out["cls_s"] = dense(g("cls_s"))
+        out["cls_o"] = dense(g("cls_o"))
+        out["cls_r"] = dense(g("cls_r"))
+    if pred_type == "attention":
+        out["fc_q"] = ref_mlp(g("fc_q"))
+        out["fc_k"] = ref_mlp(g("fc_k"))
+    return out

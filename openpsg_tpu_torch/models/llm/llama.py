@@ -30,6 +30,10 @@ class LlamaConfig:
     ffn_hidden: int = 11008
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    max_seq_len: int = 512
+    # False: every token attends to every valid key (head v3's non-causal
+    # trunk); True (default): causal by position
+    causal: bool = True
     # int8 projections with per-output-channel float32 scales (QDense)
     quant: bool = False
     # with ``quant``: per-token int8 activations for products of at least
@@ -44,7 +48,13 @@ class LlamaConfig:
     @staticmethod
     def tiny_test(vocab_size: int = 128) -> "LlamaConfig":
         return LlamaConfig(vocab_size=vocab_size, dim=64, n_layers=2, n_heads=4,
-                           n_kv_heads=2, ffn_hidden=128, dtype=torch.float32)
+                           n_kv_heads=2, ffn_hidden=128, max_seq_len=128,
+                           dtype=torch.float32)
+
+    def truncate(self, n: int) -> "LlamaConfig":
+        """The first n layers only (``llm_truncate_num`` /
+        ``shave_language_decoder_at``)."""
+        return dataclasses.replace(self, n_layers=n)
 
 
 class RMSNorm(nn.Module):
@@ -239,17 +249,21 @@ class LlamaBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    def __init__(self, c: LlamaConfig):
+    def __init__(self, c: LlamaConfig, lm_head: bool = True):
+        """``lm_head=False``: a trunk whose callers only take the hidden
+        states (``return_hidden``), as flax builds one that never calls
+        its head."""
         super().__init__()
         self.c = c
         self.layers = nn.ModuleList(LlamaBlock(c) for _ in range(c.n_layers))
         self.final_norm = RMSNorm(c.dim, c.norm_eps)
-        self.lm_head = _dense(c, c.dim, c.vocab_size)
+        if lm_head:
+            self.lm_head = _dense(c, c.dim, c.vocab_size)
 
     def forward(self, input_embeds, attention_mask, positions,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache_index: int = 0, key_positions=None, last_logit_only=False,
-                remat: bool = False):
+                remat: bool = False, return_hidden: bool = False):
         """input_embeds [B, L, D]; attention_mask [B, S] over keys;
         positions [B, L].  Without ``cache``: causal attention among the L
         tokens, returns (logits, (k, v) stacked [n_layers, B, L, kv, hd]).
@@ -261,7 +275,10 @@ class Llama(nn.Module):
         ``remat`` (training, no cache): each block runs under activation
         checkpointing, so the backward recomputes it instead of keeping its
         activations (the JAX ``LlamaConfig.remat``), and no K/V is kept:
-        returns (logits, None)."""
+        returns (logits, None).
+
+        ``return_hidden``: the final-normed hidden states [B, L, D] in place
+        of the logits."""
         c = self.c
         if remat and cache is not None:
             raise ValueError("remat is the training forward: it takes no cache")
@@ -270,15 +287,22 @@ class Llama(nn.Module):
         dev = input_embeds.device
         if cache is None:
             kp = positions if key_positions is None else key_positions
-            mask_cur = (kp[:, None, :] <= positions[:, :, None]) & attention_mask[:, None, :]
+            if c.causal:
+                mask_cur = (kp[:, None, :] <= positions[:, :, None]) & attention_mask[:, None, :]
+            else:
+                mask_cur = attention_mask[:, None, :].expand(B, L, attention_mask.shape[1])
             mask_cache = torch.zeros(B, L, 0, dtype=torch.bool, device=dev)
             empty = torch.zeros(B, 0, c.n_kv_heads, hd, dtype=c.dtype, device=dev)
         else:
             if key_positions is None:
                 raise ValueError("the cache path needs key_positions")
             S = cache[0].shape[2]
-            base = key_positions[:, None, :] <= positions[:, :, None]
-            mask_cur = positions[:, None, :] <= positions[:, :, None]
+            if c.causal:
+                base = key_positions[:, None, :] <= positions[:, :, None]
+                mask_cur = positions[:, None, :] <= positions[:, :, None]
+            else:
+                base = torch.ones(B, L, S, dtype=torch.bool, device=dev)
+                mask_cur = torch.ones(B, L, L, dtype=torch.bool, device=dev)
             slot = torch.arange(S, device=dev)[None, None, :]
             in_cur = (slot >= cache_index) & (slot < cache_index + L)
             mask_cache = base & attention_mask[:, None, :] & ~in_cur
@@ -306,17 +330,19 @@ class Llama(nn.Module):
         else:
             new_cache = (torch.stack(ks), torch.stack(vs)) if cache is None else cache
         x = self.final_norm(x)
+        if return_hidden:
+            return x, new_cache
         if last_logit_only:
             x = x[:, -1:]
         return self.lm_head(x).float(), new_cache
 
 
 class LlamaWithEmbeddings(nn.Module):
-    def __init__(self, c: LlamaConfig):
+    def __init__(self, c: LlamaConfig, lm_head: bool = True):
         super().__init__()
         self.cfg = c
         self.tok_embed = nn.Embedding(c.vocab_size, c.dim)
-        self.core = Llama(c)
+        self.core = Llama(c, lm_head=lm_head)
 
     def embed(self, token_ids):
         return self.tok_embed(token_ids)

@@ -38,14 +38,19 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, q_in, k_in, v_in):
+    def forward(self, q_in, k_in, v_in, mask=None):
+        """q_in [L, D], k_in / v_in [S, D]; ``mask`` [L, S] bool (True =
+        attend; masked logits take float32's minimum, as flax's)."""
         L, D = q_in.shape
         H = self.num_heads
         hd = D // H
         q = self.query(q_in).reshape(L, H, hd) / (hd ** 0.5)
         k = self.key(k_in).reshape(-1, H, hd)
         v = self.value(v_in).reshape(-1, H, hd)
-        attn = torch.softmax(mm_f32(q, k, "qhd,khd->hqk"), dim=-1).to(v.dtype)
+        logits = mm_f32(q, k, "qhd,khd->hqk")
+        if mask is not None:
+            logits = logits.masked_fill(~mask[None], torch.finfo(logits.dtype).min)
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("hqk,khd->qhd", attn, v).reshape(L, D)
         return self.out(out)
 

@@ -1,6 +1,7 @@
-"""Panoptic fusion with mmdet-scheme ids, sigmoid / per-class mode only
-(counterpart of ``panoptic_fusion`` in
-``openpsg_tpu/models/segmenter/fusion.py:48-142``)."""
+"""Panoptic fusion with mmdet-scheme ids (counterpart of ``panoptic_fusion``
+in ``openpsg_tpu/models/segmenter/fusion.py:48-142``): sigmoid class scores
+(OpenSeeD) or a softmax with a void column (mmdet Mask2Former), and
+per-class (OpenSeeD remap) or global (mmdet fusion head) instance ids."""
 
 from __future__ import annotations
 
@@ -28,22 +29,40 @@ class FusionResult(NamedTuple):
 
 
 def panoptic_fusion(
-    cls_logits: torch.Tensor,    # [Q, K]
+    cls_logits: torch.Tensor,    # [Q, K], or [Q, K + 1] with softmax_void
     mask_logits: torch.Tensor,   # [Q, H, W]
     *,
+    cls_mode: str = "sigmoid",
     object_mask_thr: float = 0.25,
     iou_thr: float = 0.8,
+    instance_mode: str = "per_class",
     num_things: int = NUM_THING_CLASSES,
     region_mask: Optional[torch.Tensor] = None,  # [H, W] bool
 ) -> FusionResult:
-    """Greedy score-weighted per-pixel winner, area/``iou_thr`` filter, and
-    OpenSeeD's per-class instance counters (things count from 0 in query
-    order; stuff of one class shares id = class)."""
-    Q, K = cls_logits.shape
-    probs = torch.sigmoid(cls_logits.float())
-    scores = probs.max(dim=-1).values
-    labels = probs.argmax(dim=-1).to(torch.int32)   # first index on ties
-    keep = scores > object_mask_thr
+    """Greedy score-weighted per-pixel winner and area/``iou_thr`` filter.
+
+    ``cls_mode``: ``"sigmoid"`` (per-class sigmoid scores) or
+    ``"softmax_void"`` (softmax over the classes and a last void column; a
+    query whose best class is void is dropped).  ``instance_mode``:
+    ``"per_class"`` (OpenSeeD's remap: things count from 0 per class in
+    query order; stuff of one class shares id = class) or ``"global"``
+    (mmdet's fusion head: one counter over surviving things, from 1)."""
+    Q = cls_logits.shape[0]
+    logits32 = cls_logits.float()
+    if cls_mode == "softmax_void":
+        probs = torch.softmax(logits32, dim=-1)
+        scores = probs.max(dim=-1).values
+        labels = probs.argmax(dim=-1).to(torch.int32)   # first index on ties
+        keep = (labels != probs.shape[-1] - 1) & (scores > object_mask_thr)
+        labels = torch.clamp(labels, max=probs.shape[-1] - 2)   # clamp the void label
+    elif cls_mode == "sigmoid":
+        probs = torch.sigmoid(logits32)
+        scores = probs.max(dim=-1).values
+        labels = probs.argmax(dim=-1).to(torch.int32)
+        keep = scores > object_mask_thr
+    else:
+        raise ValueError(cls_mode)
+    K = cls_logits.shape[-1]
 
     mask_probs = torch.sigmoid(mask_logits.float())
     if region_mask is not None:
@@ -65,10 +84,16 @@ def panoptic_fusion(
     survive = keep & (mask_area > 0) & (orig_area > 0) & ratio_ok
 
     is_thing = labels < num_things
-    onehot = F.one_hot(labels.long(), K).to(torch.int32)
-    counted = onehot * (survive & is_thing)[:, None].to(torch.int32)
-    occ = torch.cumsum(counted, dim=0) - counted         # exclusive
-    inst = torch.gather(occ, 1, labels.long()[:, None])[:, 0]
+    if instance_mode == "global":
+        counted = (survive & is_thing).to(torch.int32)
+        inst = torch.cumsum(counted, dim=0) * counted
+    elif instance_mode == "per_class":
+        onehot = F.one_hot(labels.long(), K).to(torch.int32)
+        counted = onehot * (survive & is_thing)[:, None].to(torch.int32)
+        occ = torch.cumsum(counted, dim=0) - counted         # exclusive
+        inst = torch.gather(occ, 1, labels.long()[:, None])[:, 0]
+    else:
+        raise ValueError(instance_mode)
     object_ids = torch.where(is_thing, labels + INSTANCE_OFFSET * inst, labels).to(torch.int32)
 
     pix_ok = survive[winner] & keep[winner] & assigned.any(dim=0)

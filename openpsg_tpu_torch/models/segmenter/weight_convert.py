@@ -3,8 +3,10 @@
 
 The converters return the flax-layout tree of numpy arrays the JAX
 package's converters return, equal to theirs; ``bridge.load_part`` loads
-it into the port's modules (``PSGv4.load_segmenter_weights``).  Mask2Former
-and ResNet checkpoints come with the closed-set slice.
+it into the port's modules (``PSGv4.load_segmenter_weights``,
+``PSGMask2FormerRelation.load_segmenter_weights``).  Besides OpenSeeD:
+mmdet Mask2Former checkpoints (``convert_mask2former``, with their
+ResNet or mmdet-Swin backbone).
 
 Covers the full OpenSeeD trunk: Swin backbone (standard microsoft/Swin
 layout, used by both OpenSeeD's Swin-T and mmdet's Swin-B), the MaskDINO
@@ -652,4 +654,255 @@ def convert_openseed_lang(
         "tower": tower,
         "lang_proj": np.asarray(g(prefix + "lang_proj")),
         "logit_scale": np.asarray(g(prefix + "logit_scale")).reshape(()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mmdet Mask2Former checkpoints (the v1/v2/v3 model generations)
+#
+# The reference's earlier generations start from mmdet's published COCO-
+# panoptic Mask2Former checkpoints (configs/psg/baseline_r50.py:3 load_from
+# mask2former_r50_lsj_8x2_50e_coco-panoptic_*.pth; baseline_swin_b.py Swin-B
+# variant).  Layout facts the mapping encodes (mmdet 2.x
+# mmdet/models/plugins/msdeformattn_pixel_decoder.py,
+# mmdet/models/dense_heads/mask2former_head.py):
+#   * encoder levels AND decoder level-embeds are ordered COARSE-first
+#     (input_convs[0] takes the stride-32 map); ours are fine-first →
+#     ckpt_level_strides=(32, 16, 8) permutation.
+#   * the query decoder layer is ('cross_attn','norm','self_attn','norm',
+#     'ffn','norm') post-norm; attentions.0 = cross, attentions.1 = self,
+#     both mmcv MultiheadAttention wrapping torch (".attn." infix,
+#     in_proj/out_proj → _mha_from_inproj).
+#   * query_embed.weight is the (layer-shared) query POSITION embedding,
+#     query_feat.weight the content init; the shared transformer_decoder.
+#     post_norm + mask_embed pair computing each layer's attention gate is
+#     broadcast into every scanned layer's gate_norm/mask_head.
+#   * BatchNorms (backbone) fold into FrozenBN scale/shift (norm_eval /
+#     frozen backbone semantics; eps 1e-5).
+# ---------------------------------------------------------------------------
+
+MASK2FORMER_DROP_PATTERNS = (
+    r"num_batches_tracked$",
+    r"panoptic_fusion_head",      # parameterless; guard against meta tensors
+)
+
+
+def _frozen_bn(g, base: str, eps: float = 1e-5) -> Dict[str, np.ndarray]:
+    """Inference-mode BatchNorm → per-channel (scale, shift)."""
+    w, b = g(base + ".weight"), g(base + ".bias")
+    mean, var = g(base + ".running_mean"), g(base + ".running_var")
+    scale = w / np.sqrt(var + eps)
+    return {"scale": scale, "shift": b - mean * scale}
+
+
+def convert_resnet(
+    g, prefix: str = "backbone.", depths: Sequence[int] = (3, 4, 6, 3)
+) -> Dict[str, Any]:
+    """mmdet/torchvision ResNet state dict → our ``ResNet`` params."""
+    out: Dict[str, Any] = {
+        "stem": {"kernel": _conv(g(prefix + "conv1.weight"))},
+        "stem_bn": _frozen_bn(g, prefix + "bn1"),
+    }
+    for s, depth in enumerate(depths):
+        for b in range(depth):
+            p = f"{prefix}layer{s + 1}.{b}."
+            blk: Dict[str, Any] = {}
+            for j in (1, 2, 3):
+                blk[f"conv{j}"] = {"kernel": _conv(g(p + f"conv{j}.weight"))}
+                blk[f"bn{j}"] = _frozen_bn(g, p + f"bn{j}")
+            if g.has(p + "downsample.0.weight"):
+                blk["downsample"] = {
+                    "kernel": _conv(g(p + "downsample.0.weight"))
+                }
+                blk["downsample_bn"] = _frozen_bn(g, p + "downsample.1")
+            out[f"stage{s}_block{b}"] = blk
+    return out
+
+
+def mmdet_swin_state_to_ms(
+    state: Mapping[str, np.ndarray], prefix: str = "backbone."
+) -> Dict[str, np.ndarray]:
+    """mmdet SwinTransformer keys → the MS layout ``convert_swin`` consumes.
+
+    Beyond renames, mmdet's PatchMerging gathers the 2×2 patch with
+    nn.Unfold — channel-major, positions row-major (00, 01, 10, 11) — while
+    MS Swin concatenates position-major in (00, 10, 01, 11) order; the
+    downsample reduction/norm input columns are permuted accordingly."""
+    out: Dict[str, np.ndarray] = {}
+    ren = [
+        ("patch_embed.projection.", "patch_embed.proj."),
+        ("patch_embed.norm.", "patch_embed.norm."),
+    ]
+    for k, v in state.items():
+        if not k.startswith(prefix):
+            continue
+        k = k[len(prefix):]
+        v = np.asarray(v)
+        if k.endswith("attn.w_msa.relative_position_index"):
+            continue  # recomputed from geometry
+        for a, b in ren:
+            if k.startswith(a):
+                k = b + k[len(a):]
+                break
+        k = k.replace("stages.", "layers.")
+        k = k.replace(".attn.w_msa.", ".attn.")
+        k = k.replace(".ffn.layers.0.0.", ".mlp.fc1.")
+        k = k.replace(".ffn.layers.1.", ".mlp.fc2.")
+        if ".downsample." in k:
+            # permute the 4C concat axis: ms_col[pos_ms*C + c] =
+            # mmdet_col[c*4 + pos_rowmajor(pos_ms)], pos_ms order (00,10,01,11)
+            C = v.shape[-1] // 4
+            rowmajor_of_ms = (0, 2, 1, 3)
+            idx = np.concatenate(
+                [np.arange(C) * 4 + rowmajor_of_ms[p] for p in range(4)]
+            )
+            if k.endswith("downsample.reduction.weight"):
+                v = v[:, idx]
+            elif k.endswith((".norm.weight", ".norm.bias")):
+                v = v[idx]
+        out[k] = v
+    return out
+
+
+def _seq_mlp(g, base: str, ids: Sequence[int] = (0, 2, 4)) -> Dict[str, Any]:
+    """torch nn.Sequential(Linear, ReLU, ...) MLP → our MLP fc{j} params."""
+    return {f"fc{j}": _dense(g, f"{base}.{i}") for j, i in enumerate(ids)}
+
+
+def convert_mask2former(
+    state: Mapping[str, np.ndarray],
+    cfg=None,
+    prefix: str = "",
+    ckpt_level_strides: Tuple[int, ...] = (32, 16, 8),
+    strict: bool = True,
+) -> Dict[str, Any]:
+    """mmdet Mask2Former checkpoint → ``Mask2FormerSegmenter`` params."""
+    from openpsg_tpu_torch.models.segmenter.mask2former import Mask2FormerConfig
+
+    cfg = cfg or Mask2FormerConfig()
+    g = _Consumed({k[len(prefix):]: v for k, v in state.items()
+                   if k.startswith(prefix)})
+    nH, K = 8, 4
+    internal_strides = (8, 16, 32)
+    L = len(internal_strides)
+    perm = [ckpt_level_strides.index(s) for s in internal_strides]
+
+    # ---- backbone ----
+    if g.has("backbone.conv1.weight"):
+        depths = {"r50": (3, 4, 6, 3), "tiny_r50": (1, 1, 1, 1)}.get(
+            cfg.backbone, (3, 4, 6, 3)
+        )
+        backbone = convert_resnet(g, "backbone.", depths)
+    else:
+        ms = mmdet_swin_state_to_ms(g.state, "backbone.")
+        depths = {"swin_t": (2, 2, 6, 2), "swin_b": (2, 2, 18, 2),
+                  "tiny": (1, 1, 1, 1)}.get(cfg.backbone, (2, 2, 18, 2))
+        backbone = convert_swin(ms, depths=depths)
+        for k in list(g.state):
+            if k.startswith("backbone."):
+                g.used.add(k)
+
+    # ---- pixel decoder ----
+    pd = "panoptic_head.pixel_decoder."
+    pixel_decoder: Dict[str, Any] = {}
+    for i, s in enumerate(internal_strides):
+        j = ckpt_level_strides.index(s)
+        kern = _conv(g(pd + f"input_convs.{j}.conv.weight"))
+        # mmdet's input ConvModules set bias=True explicitly despite the
+        # following GN, but guard against norm-implies-no-bias variants
+        b = g.opt(pd + f"input_convs.{j}.conv.bias")
+        pixel_decoder[f"input_proj{i}"] = {
+            "kernel": kern,
+            "bias": b if b is not None else np.zeros(kern.shape[-1], np.float32),
+        }
+        pixel_decoder[f"input_norm{i}"] = _gn(g, pd + f"input_convs.{j}.gn")
+    pixel_decoder["level_embed"] = g(pd + "level_encoding.weight")[
+        np.asarray(perm)
+    ]
+
+    enc_layers = []
+    li = 0
+    while g.has(pd + f"encoder.layers.{li}.norms.0.weight"):
+        base = pd + f"encoder.layers.{li}."
+        enc_layers.append({
+            "self_attn": _msda(g, base + "attentions.0", nH, L, K, perm),
+            "norm1": _gn(g, base + "norms.0"),
+            "ffn": {
+                "fc1": _dense(g, base + "ffns.0.layers.0.0"),
+                "fc2": _dense(g, base + "ffns.0.layers.1"),
+                "norm": _gn(g, base + "norms.1"),
+            },
+        })
+        li += 1
+    pixel_decoder["layers"] = {"layer": _stack_tree(enc_layers)}
+
+    pixel_decoder["lateral4"] = {
+        "kernel": _conv(g(pd + "lateral_convs.0.conv.weight"))
+    }
+    pixel_decoder["lateral4_norm"] = _gn(g, pd + "lateral_convs.0.gn")
+    pixel_decoder["output4"] = {
+        "kernel": _conv(g(pd + "output_convs.0.conv.weight"))
+    }
+    pixel_decoder["output4_norm"] = _gn(g, pd + "output_convs.0.gn")
+    pixel_decoder["mask_feature_proj"] = {
+        "kernel": _conv(g(pd + "mask_feature.weight")),
+        "bias": g(pd + "mask_feature.bias"),
+    }
+
+    # ---- masked-attention query decoder ----
+    ph = "panoptic_head."
+    post_norm = _gn(g, ph + "transformer_decoder.post_norm")
+    mask_embed = _seq_mlp(g, ph + "mask_embed")
+    query_pos = g(ph + "query_embed.weight")
+
+    decoder: Dict[str, Any] = {
+        "query_embed": g(ph + "query_feat.weight"),
+        "decoder_norm": dict(post_norm),
+        "cls_head": _dense(g, ph + "cls_embed"),
+        "final_mask_head": mask_embed,
+    }
+    dle = g(ph + "level_embed.weight")
+    for lvl, s in enumerate(internal_strides):
+        decoder[f"level_embed{lvl}"] = dle[ckpt_level_strides.index(s)]
+
+    dec_layers = []
+    li = 0
+    while g.has(ph + f"transformer_decoder.layers.{li}.norms.0.weight"):
+        base = ph + f"transformer_decoder.layers.{li}."
+
+        def mha(idx):
+            return _mha_from_inproj(
+                g(base + f"attentions.{idx}.attn.in_proj_weight"),
+                g(base + f"attentions.{idx}.attn.in_proj_bias"),
+                g(base + f"attentions.{idx}.attn.out_proj.weight"),
+                g(base + f"attentions.{idx}.attn.out_proj.bias"),
+                nH,
+            )
+
+        dec_layers.append({
+            "gate_norm": dict(post_norm),
+            "mask_head": mask_embed,
+            "query_pos": query_pos,
+            "cross_attn": mha(0),
+            "ln_cross": _gn(g, base + "norms.0"),
+            "self_attn": mha(1),
+            "ln_self": _gn(g, base + "norms.1"),
+            "ffn_up": _dense(g, base + "ffns.0.layers.0.0"),
+            "ffn_down": _dense(g, base + "ffns.0.layers.1"),
+            "ln_ffn": _gn(g, base + "norms.2"),
+        })
+        li += 1
+    decoder["layers"] = _stack_tree(dec_layers)
+
+    if strict:
+        left = g.leftovers(MASK2FORMER_DROP_PATTERNS)
+        if left:
+            raise ValueError(
+                f"unmapped checkpoint keys ({len(left)}): {left[:20]} ..."
+            )
+
+    return {
+        "backbone": backbone,
+        "pixel_decoder": pixel_decoder,
+        "decoder": decoder,
     }

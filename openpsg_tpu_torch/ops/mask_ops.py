@@ -1,4 +1,6 @@
-"""Mask-centric ops (counterpart of ``openpsg_tpu/ops/mask_ops.py:86-117``)."""
+"""Mask-centric ops (counterpart of ``openpsg_tpu/ops/mask_ops.py``): mask
+pooling (plain and chunked), pair OR-masks, resampling, and per-object
+masks from an id map."""
 
 from __future__ import annotations
 
@@ -48,3 +50,51 @@ def downsample_nearest(idmap: torch.Tensor, out_hw) -> torch.Tensor:
     if w != W:
         out = out[..., _nearest_index(W, w, idmap.device)]
     return out
+
+
+def mask_pool(features: torch.Tensor, masks: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Masked average pool: features [C, H, W], masks [N, H, W] (bool or
+    {0, 1}) → [N, C].  An empty mask gives the zero vector."""
+    m = masks.to(features.dtype)
+    num = torch.einsum("chw,nhw->nc", features, m)
+    den = m.sum(dim=(1, 2))[:, None]
+    return num / torch.clamp(den, min=eps)
+
+
+def mask_pool_chunked(features: torch.Tensor, masks: torch.Tensor, size: int) -> torch.Tensor:
+    """The reference's ``_mask_pooling(output_size=S)``: features [C, H, W],
+    masks [N, H, W] → [N, S, C] object tokens.
+
+    The masked pixels (``mask >= 0.5``) in row-major order split into S
+    contiguous chunks, the first ``n % S`` one pixel longer, each chunk
+    averaged; with ``0 < n < S`` token k is the pixel of rank ``k % n``;
+    an empty mask gives zero tokens.  Each pixel's chunk comes from its
+    rank (a cumulative sum), so the pooling is one [C, P] x [P, S] product
+    per object."""
+    if size == 1:
+        return mask_pool(features, masks)[:, None, :]
+    C = features.shape[0]
+    flat = features.reshape(C, -1)                              # [C, P]
+    m = (masks >= 0.5).reshape(masks.shape[0], -1)              # [N, P]
+    ks = torch.arange(size, device=features.device)
+    n = m.sum(dim=1, keepdim=True)                              # [N, 1]
+    r0 = torch.cumsum(m.to(torch.int64), dim=1) - 1             # pixel rank
+    base, rem = n // size, n % size
+    big = torch.where(
+        r0 < rem * (base + 1),
+        torch.div(r0, torch.clamp(base + 1, min=1), rounding_mode="floor"),
+        rem + torch.div(r0 - rem * (base + 1), torch.clamp(base, min=1),
+                        rounding_mode="floor"),
+    )
+    w_big = m[..., None] & (big[..., None] == ks)
+    w_small = m[..., None] & ((ks % torch.clamp(n, min=1)[..., None]) == r0[..., None])
+    w = torch.where((n >= size)[..., None], w_big, w_small).to(features.dtype)  # [N, P, S]
+    num = torch.einsum("cp,nps->nsc", flat, w)
+    den = w.sum(dim=1)[:, :, None]
+    return num / torch.clamp(den, min=1.0)
+
+
+def masks_from_idmap(idmap: torch.Tensor, object_ids: torch.Tensor) -> torch.Tensor:
+    """Per-object boolean masks from a panoptic id map: idmap [h, w],
+    object_ids [N] → [N, h, w] (one broadcast compare)."""
+    return idmap[None, :, :] == object_ids[:, None, None]

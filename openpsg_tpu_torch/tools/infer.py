@@ -18,6 +18,12 @@ bucket, largest bucket first, and the submission is put back in test order
 at the end.  A worker thread prepares the next chunk while the model runs
 the current one.
 
+Models: PSG v4 (``OpenSeeDRelationV2``) and the closed-set v1 / v2 / v3
+family (``Mask2FormerRelation``, ``Mask2FormerRelationV2``,
+``OpenSeeDRelation``: ``PSGMask2FormerRelation``, per image or
+``--batch-size``, ``--gt-masks``; its part checkpoints hold the head and
+the object class embeddings).
+
 Model paths: per image (``PSGv4.infer``); ``--micro-batch N`` runs the
 deployment program on N images at a time (``infer_microbatch``: one
 flattened LLM prefill and decode); ``--batch-size N`` runs ``infer_batch``
@@ -161,6 +167,7 @@ def main(argv=None, model=None):
         AUTO_MB_DECODE_STEPS,
         AUTO_MB_HYSTERESIS,
         AUTO_MB_SIZE,
+        PSGv4,
     )
     from openpsg_tpu_torch.utils.image_io import image_decoder
     from openpsg_tpu_torch.utils.panoptic import rgb2id
@@ -178,6 +185,10 @@ def main(argv=None, model=None):
         model = build_detector_from_config(cfg, seed=args.seed,
                                            device=resolve_device(args.device))
     print(f"device: {model.device}; image decoder: {image_decoder()}")
+    is_v4 = isinstance(model, PSGv4)
+    if args.micro_batch and not is_v4:
+        raise SystemExit("--micro-batch is a PSG v4 path; the closed-set family runs "
+                         "per image or with --batch-size")
     if args.checkpoint:
         from openpsg_tpu_torch.train.checkpoint import restore_trainable_for_inference
 
@@ -205,7 +216,7 @@ def main(argv=None, model=None):
     t0 = time.time()
     B = max(args.micro_batch or args.batch_size, 1)
 
-    auto_mb = (not args.micro_batch and args.batch_size <= 1 and not args.gt_masks
+    auto_mb = (is_v4 and not args.micro_batch and args.batch_size <= 1 and not args.gt_masks
                and not args.no_auto_micro_batch and len(records) > 1)
     ctrl = None
     if auto_mb and not model.cfg.decode_early_exit:
@@ -259,7 +270,8 @@ def main(argv=None, model=None):
     def _load_gt_objects(rec, ex):
         """GT panoptic PNG → padded bucket-size masks and mmdet-scheme ids
         (per-class instance counters from 0)."""
-        M = model.cfg.head.max_objects_padded
+        # PSGv4Config nests it under the head; M2FRelationConfig at top level
+        M = getattr(model.cfg, "head", model.cfg).max_objects_padded
         pan_id = rgb2id(load_image_rgb(os.path.join(data_dir, rec["pan_seg_file_name"])))
         nh, nw = ex["img_shape"]
         Hb, Wb = ex["image"].shape[:2]

@@ -218,6 +218,11 @@ def main(argv=None, model=None):
         opts = dict(kv.split("=", 1) for kv in args.cfg_options)
         cfg.merge_from_dict({k: _parse_cfg_value(v) for k, v in opts.items()})
 
+    from openpsg_tpu_torch.models.detectors.mask2former_relation import DETECTOR_TYPES
+
+    if cfg.model.get("type") in DETECTOR_TYPES:
+        raise SystemExit(f"model type {cfg.model.get('type')!r}: training the closed-set "
+                         "v1-v3 family is not ported yet (the tool trains PSG v4)")
     device = resolve_device(args.device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
     os.makedirs(work_dir, exist_ok=True)

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
+from openpsg_tpu_torch.models.detectors import mask2former_relation as m2f
 from openpsg_tpu_torch.models.detectors.psg_v4 import GROUPS
 
 _STEP_DIR = re.compile(r"step_(\d+)")
@@ -98,12 +99,23 @@ class PartCheckpointer:
         """Nothing is held open between calls; kept for the JAX surface."""
 
 
+def _model_cfg(cfg):
+    return cfg.model if hasattr(cfg, "model") else cfg.get("model", {})
+
+
+def _is_family(cfg) -> bool:
+    return _model_cfg(cfg).get("type") in m2f.DETECTOR_TYPES
+
+
 def freeze_keys_from_config(cfg) -> Set[str]:
     """The reference's ``train_cfg.freeze_layers`` names (prefix match) →
-    the frozen top-level groups of the v4 model.  The segmenter, the text
-    encoder and the class embeddings always freeze; the LLM freezes when a
-    name mentions the language model or when no names are given."""
-    model_cfg = cfg.model if hasattr(cfg, "model") else cfg.get("model", {})
+    the frozen top-level groups.  PSG v4: the segmenter, the text encoder
+    and the class embeddings always freeze; the LLM freezes when a name
+    mentions the language model or when no names are given.  The closed-set
+    family trains its head and object class embeddings only."""
+    model_cfg = _model_cfg(cfg)
+    if _is_family(cfg):
+        return set(m2f.GROUPS) - set(m2f.TRAINABLE_GROUPS)
     train_cfg = model_cfg.get("train_cfg") or {}
     freeze_names = set(train_cfg.get("freeze_layers", []))
     freeze = {"segmenter", "text", "class_embeds"}
@@ -120,8 +132,9 @@ def split_trainable(params: Dict[str, Any], freeze_keys) -> Tuple[Dict[str, Any]
 
 
 def trainable_groups(cfg) -> Tuple[str, ...]:
-    """The groups a config trains, in :data:`GROUPS` order."""
-    trainable, _ = split_trainable(dict.fromkeys(GROUPS), freeze_keys_from_config(cfg))
+    """The groups a config trains, in its model's group order."""
+    groups = m2f.GROUPS if _is_family(cfg) else GROUPS
+    trainable, _ = split_trainable(dict.fromkeys(groups), freeze_keys_from_config(cfg))
     return tuple(trainable)
 
 

@@ -13,6 +13,12 @@ shapes, filled from a seeded ``numpy`` generator:
 * :func:`synthetic_relation_v4_state`: the reference v4 relation head as a
   ``PartCheckpointHook`` saves it (``relation_head.*`` without the frozen
   ``language_model``);
+* :func:`synthetic_mask2former_state`: an mmdet Mask2Former checkpoint
+  (ResNet or mmdet-Swin under ``backbone.``, the MSDeformAttn pixel decoder
+  and the masked-attention decoder under ``panoptic_head.``);
+* :func:`synthetic_relation_v1_state`: the reference v1 relation head as
+  ``PartCheckpointHook`` saves it (``relation_head.*`` and
+  ``object_cls_embed.weight``);
 * :func:`toy_clip_merges`: a CLIP BPE merges file over a word list.
 
 With ``fan_in=False`` (the default) weights are N(0, 1), the values the JAX
@@ -23,6 +29,7 @@ draws, which keeps activations at full width in range.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
@@ -308,6 +315,173 @@ def synthetic_relation_v4_state(head_cfg, mask_dim: int, seed: int = 0,
     if "multiclass" in head_cfg.rel_cls_type:
         dense("multiclass_rel_cls_pred", head_cfg.num_relation_classes, D)
     return {prefix + k: v for k, v in s.items()}
+
+
+def synthetic_mask2former_state(cfg, seed: int = 0, fan_in: bool = False,
+                                enc_ffn: int = None) -> State:
+    """mmdet Mask2Former checkpoint of a ``Mask2FormerConfig``'s geometry in
+    the key schema ``convert_mask2former`` documents: a ResNet (``r50``,
+    ``tiny_r50``) or mmdet SwinTransformer (``swin_t``, ``swin_b``,
+    ``tiny``) backbone with BatchNorm running statistics, the pixel decoder's
+    input convolutions coarse-first, ``enc_ffn`` (default the config's
+    encoder width) the encoder FFN width, the decoder with
+    ``query_feat`` / ``query_embed`` / ``level_embed``, ``cls_embed`` over
+    ``num_classes + 1`` and the ``mask_embed`` MLP."""
+    from openpsg_tpu_torch.models.segmenter.mask2former import BACKBONES, backbone_channels
+
+    rng = np.random.default_rng(seed)
+    dim, Q = cfg.dim, cfg.num_queries
+    nH, L, K = 8, 3, 4
+    enc_ffn = enc_ffn or cfg.enc_ffn_hidden or cfg.ffn_hidden
+    s: State = {}
+    w = lambda *shape: _normal(rng, shape, int(np.prod(shape[1:])) if fan_in else None)
+    vec = lambda n, scale=0.02: _normal(rng, (n,)) * np.float32(scale)
+
+    def bn(base, c):
+        s[base + ".weight"] = (1.0 + vec(c, 0.1)).astype(np.float32)
+        s[base + ".bias"] = vec(c, 0.1)
+        s[base + ".running_mean"] = vec(c, 0.1)
+        s[base + ".running_var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        s[base + ".num_batches_tracked"] = np.asarray(100, np.int64)
+
+    def norm(base, c):
+        s[base + ".weight"] = (1.0 + vec(c, 0.1)).astype(np.float32)
+        s[base + ".bias"] = vec(c, 0.1)
+
+    def lin(base, o, i, bias=True):
+        s[base + ".weight"] = w(o, i)
+        if bias:
+            s[base + ".bias"] = vec(o)
+
+    kind, kw = BACKBONES[cfg.backbone]
+    if kind == "resnet":
+        base = kw["base_ch"]
+        s["backbone.conv1.weight"] = w(base, 3, 7, 7)
+        bn("backbone.bn1", base)
+        ch, inp = base, base
+        for st, depth in enumerate(kw["depths"]):
+            for b in range(depth):
+                p = f"backbone.layer{st + 1}.{b}."
+                s[p + "conv1.weight"] = w(ch, inp, 1, 1)
+                bn(p + "bn1", ch)
+                s[p + "conv2.weight"] = w(ch, ch, 3, 3)
+                bn(p + "bn2", ch)
+                s[p + "conv3.weight"] = w(4 * ch, ch, 1, 1)
+                bn(p + "bn3", 4 * ch)
+                if b == 0:
+                    s[p + "downsample.0.weight"] = w(4 * ch, inp, 1, 1)
+                    bn(p + "downsample.1", 4 * ch)
+                inp = 4 * ch
+            ch *= 2
+    else:
+        E, win = kw["embed_dim"], kw["window"]
+        s["backbone.patch_embed.projection.weight"] = w(E, 3, 4, 4)
+        s["backbone.patch_embed.projection.bias"] = vec(E)
+        norm("backbone.patch_embed.norm", E)
+        C = E
+        for st, depth in enumerate(kw["depths"]):
+            for b in range(depth):
+                p = f"backbone.stages.{st}.blocks.{b}."
+                norm(p + "norm1", C)
+                norm(p + "norm2", C)
+                s[p + "attn.w_msa.relative_position_bias_table"] = vec(
+                    (2 * win - 1) ** 2 * kw["num_heads"][st]).reshape(
+                    (2 * win - 1) ** 2, kw["num_heads"][st])
+                s[p + "attn.w_msa.relative_position_index"] = np.zeros(
+                    (win * win, win * win), np.int64)
+                lin(p + "attn.w_msa.qkv", 3 * C, C)
+                lin(p + "attn.w_msa.proj", C, C)
+                lin(p + "ffn.layers.0.0", 4 * C, C)
+                lin(p + "ffn.layers.1", C, 4 * C)
+            norm(f"backbone.norm{st}", C)
+            if st < 3:
+                d = f"backbone.stages.{st}.downsample."
+                norm(d + "norm", 4 * C)
+                lin(d + "reduction", 2 * C, 4 * C, bias=False)
+                C *= 2
+    chans = backbone_channels(cfg.backbone)
+    pd = "panoptic_head.pixel_decoder."
+    for j, c_in in enumerate((chans[3], chans[2], chans[1])):     # strides 32, 16, 8
+        s[pd + f"input_convs.{j}.conv.weight"] = w(dim, c_in, 1, 1)
+        s[pd + f"input_convs.{j}.conv.bias"] = vec(dim)
+        norm(pd + f"input_convs.{j}.gn", dim)
+    for l in range(cfg.enc_layers):
+        b = pd + f"encoder.layers.{l}."
+        lin(b + "attentions.0.sampling_offsets", nH * L * K * 2, dim)
+        s[b + "attentions.0.sampling_offsets.weight"] *= np.float32(0.1)
+        lin(b + "attentions.0.attention_weights", nH * L * K, dim)
+        lin(b + "attentions.0.value_proj", dim, dim)
+        lin(b + "attentions.0.output_proj", dim, dim)
+        lin(b + "ffns.0.layers.0.0", enc_ffn, dim)
+        lin(b + "ffns.0.layers.1", dim, enc_ffn)
+        norm(b + "norms.0", dim)
+        norm(b + "norms.1", dim)
+    s[pd + "level_encoding.weight"] = _normal(rng, (3, dim))
+    s[pd + "lateral_convs.0.conv.weight"] = w(dim, chans[0], 1, 1)
+    norm(pd + "lateral_convs.0.gn", dim)
+    s[pd + "output_convs.0.conv.weight"] = w(dim, dim, 3, 3)
+    norm(pd + "output_convs.0.gn", dim)
+    s[pd + "mask_feature.weight"] = w(cfg.mask_dim, dim, 1, 1)
+    s[pd + "mask_feature.bias"] = vec(cfg.mask_dim)
+    ph = "panoptic_head."
+    for l in range(cfg.dec_layers):
+        b = ph + f"transformer_decoder.layers.{l}."
+        for a in (0, 1):
+            lin(b + f"attentions.{a}.attn.in_proj", 3 * dim, dim)
+            s[b + f"attentions.{a}.attn.in_proj_weight"] = s.pop(
+                b + f"attentions.{a}.attn.in_proj.weight")
+            s[b + f"attentions.{a}.attn.in_proj_bias"] = s.pop(
+                b + f"attentions.{a}.attn.in_proj.bias")
+            lin(b + f"attentions.{a}.attn.out_proj", dim, dim)
+        lin(b + "ffns.0.layers.0.0", cfg.ffn_hidden, dim)
+        lin(b + "ffns.0.layers.1", dim, cfg.ffn_hidden)
+        for n in (0, 1, 2):
+            norm(b + f"norms.{n}", dim)
+    norm(ph + "transformer_decoder.post_norm", dim)
+    s[ph + "query_embed.weight"] = _normal(rng, (Q, dim))
+    s[ph + "query_feat.weight"] = _normal(rng, (Q, dim))
+    s[ph + "level_embed.weight"] = _normal(rng, (3, dim))
+    lin(ph + "cls_embed", cfg.num_classes + 1, dim)
+    for i, o in ((0, dim), (2, dim), (4, cfg.mask_dim)):
+        lin(ph + f"mask_embed.{i}", o, dim)
+    return s
+
+
+def synthetic_relation_v1_state(head_cfg, token_dim: int, num_classes: int, vocab: int = 64,
+                                seed: int = 0, fan_in: bool = False) -> State:
+    """The reference v1 ``RelationTransformerHead`` (bilinear path) as
+    ``PartCheckpointHook`` saves it: ``relation_head.*`` (``fc_input`` when
+    the token width differs from the tower's, the BERT tower under
+    ``model.model.*`` with a ``vocab``-row word table, ``fc_output``,
+    ``cls_q`` / ``cls_k``) and ``object_cls_embed.weight``
+    [num_classes, token width]."""
+    rng = np.random.default_rng(seed)
+    D, R, qk = head_cfg.output_feature_size, head_cfg.num_relation_classes, head_cfg.cls_qk_size
+    s: State = {}
+
+    def dense(base, o, i):
+        s[base + ".weight"] = _normal(rng, (o, i), i if fan_in else None)
+        s[base + ".bias"] = _normal(rng, (o,)) * np.float32(0.02)
+
+    def dense_ln(base, o, i):
+        dense(base + ".0", o, i)
+        s[base + ".1.weight"] = 1.0 + _normal(rng, (o,)) * np.float32(0.02)
+        s[base + ".1.bias"] = _normal(rng, (o,)) * np.float32(0.02)
+
+    if token_dim != D:
+        dense_ln("fc_input", D, token_dim)
+    enc = dataclasses.replace(head_cfg.encoder, hidden_size=D, vocab_size=vocab)
+    bert = synthetic_bert_state(enc, seed=seed + 1)
+    if fan_in:
+        bert = {k: (v / np.float32(np.sqrt(v.shape[1])) if v.ndim == 2 and "embeddings" not in k
+                    else v) for k, v in bert.items()}
+    s.update({f"model.model.{k}": v for k, v in bert.items()})
+    dense_ln("fc_output", D, D)
+    dense("cls_q", R * qk, D)
+    dense("cls_k", R * qk, D)
+    out = {f"relation_head.{k}": v for k, v in s.items()}
+    out["object_cls_embed.weight"] = _normal(rng, (num_classes, token_dim)) * np.float32(0.02)
+    return out
 
 
 def toy_clip_merges(words: Iterable[str]) -> List[Tuple[str, str]]:

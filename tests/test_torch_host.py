@@ -131,10 +131,11 @@ def test_builder_full_width_resolutions(tmp_path):
 @pytest.mark.parametrize("field", ["llm_model_name", "qformer_tokenizer_path",
                                    "openseed_pretrained_path", "type"])
 def test_builder_refuses_what_waits(tmp_path, field):
-    """The closed-set detector types wait for their slice and are refused;
-    the asset fields, refused until the weights slice, now load what they
-    name: a SentencePiece ``.model`` as the LLM or Q-Former tokenizer, and
-    a reference OpenSeeD ``.pt`` into the segmenter."""
+    """What once waited for a later slice now builds: a closed-set detector
+    type (with a closed-set head) gives the closed-set family's model, a
+    closed-set type under the v4 head is refused by name; the asset fields
+    load what they name: a SentencePiece ``.model`` as the LLM or Q-Former
+    tokenizer, and a reference OpenSeeD ``.pt`` into the segmenter."""
     from openpsg_tpu_torch.models.relation.sp_tokenizer import (
         SentencePieceTokenizer,
         build_sp_model_bytes,
@@ -159,8 +160,13 @@ def test_builder_refuses_what_waits(tmp_path, field):
     p = tmp_path / "cfg.py"
     p.write_text(f"_base_ = ['{PORT_CFGS}/tiny_v4_ov.py']\n{extra}")
     if field == "type":
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(ValueError, match="RelationTransformerHeadV4"):
             builder.build_detector_from_config(Config.fromfile(str(p)), device="cpu")
+        p.write_text(f"_base_ = ['{PORT_CFGS}/tiny_v4_ov.py']\nmodel = dict(type='Mask2FormerRelation', "
+                     "relation_head=dict(_delete_=True, type='RelationTransformerHead'))\n")
+        model = builder.build_detector_from_config(Config.fromfile(str(p)), device="cpu")
+        assert type(model).__name__ == "PSGMask2FormerRelation"
+        assert model.cfg.head_version == "v1"
         return
     model = builder.build_detector_from_config(Config.fromfile(str(p)), device="cpu")
     if field == "openseed_pretrained_path":

@@ -196,9 +196,10 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 
 def test_package_imports_without_jax():
-    """Every module of the port, its configs (through ``Config.fromfile``,
-    which runs their ``custom_imports``) and the infer, train and converter
-    tools' ``--help``, with JAX, flax, optax, orbax, the JAX package, cv2,
+    """Every module of the port, its configs (the v4 ones and the closed-set
+    family's, through ``Config.fromfile``, which runs their imports and
+    ``custom_imports``) and the infer, train and converter tools'
+    ``--help``, with JAX, flax, optax, orbax, the JAX package, cv2,
     PIL, transformers and safetensors unimportable."""
     code = (
         "import sys, importlib, pkgutil, contextlib, io\n"
@@ -210,11 +211,16 @@ def test_package_imports_without_jax():
         "for m in pkgutil.walk_packages(openpsg_tpu_torch.__path__, 'openpsg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from openpsg_tpu_torch.core.config import Config\n"
-        "for name in ('baseline_v4_ov.py', 'tiny_v4_ov.py', 'tiny_v4_scratch.py'):\n"
+        "import os\n"
+        "names = sorted(os.listdir('openpsg_tpu_torch/configs/psg'))\n"
+        "assert len(names) == 12, names\n"
+        "for name in names:\n"
         "    Config.fromfile('openpsg_tpu_torch/configs/psg/' + name)\n"
-        "from openpsg_tpu_torch.tools import convert_openseed, convert_relation, infer, train\n"
+        "from openpsg_tpu_torch.tools import (convert_mask2former, convert_openseed,\n"
+        "                                     convert_relation, infer, train)\n"
         "for tool, flag in ((infer, '--vis'), (train, '--max-steps'),\n"
-        "                   (convert_openseed, '--merges'), (convert_relation, '--verify')):\n"
+        "                   (convert_openseed, '--merges'), (convert_relation, '--verify'),\n"
+        "                   (convert_mask2former, '--backbone')):\n"
         "    with contextlib.redirect_stdout(io.StringIO()) as out:\n"
         "        try:\n"
         "            tool.main(['--help'])\n"

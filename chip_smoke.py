@@ -99,7 +99,23 @@ Phases, each fatal on failure:
      converter chain: a seeded mmdet R50 Mask2Former ``.pth`` and a
      reference v1 head ``.pth`` through ``convert_mask2former`` and
      ``convert_relation``, the infer tool with the converted segmenter and
-     ``--checkpoint``, every loaded tensor equal to its converted value.
+     ``--checkpoint``, every loaded tensor equal to its converted value;
+ 11. the family's training and segmenter training: (a) one ``M2FTrainer``
+     step of the tiny float32 v1, v2 (all experts and the gate, text KV
+     store), v3 and v1 with ``object_token_size`` 2, and one
+     ``SegmenterTrainer`` step in each class mode, card vs CPU (losses,
+     gradients, updated values; costs and Hungarian assignments); (b)
+     ``tools.train.main`` at full width for ``baseline_r50.py`` (with
+     ``--validate --val-limit 2``), ``baseline_v2_r50.py`` and
+     ``baseline_v3_ov.py``, 4 steps each with ``--stage-times`` on phase
+     8's fixture, each checkpoint restored bitwise through the infer tool
+     (``--checkpoint --gt-masks``, 2 images): s/step, the split, peak
+     memory, checkpoint bytes, no kernel launch; (c) ``SegmenterTrainer``
+     on ``baseline_r50.py``'s Mask2Former at 1344², B=1, 3 steps: the split
+     and peak memory; (d) ``tools.selfcheck_e2e`` at its defaults: strict
+     R@20 > 0, the objects fusion keeps, decode trips, the shared-KV
+     kernel's launches, and the kernel against its plain version on the
+     trained model's learned pair masks.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -545,6 +561,9 @@ def main() -> int:
 
     # ---- 10. the closed-set v1-v3 family
     phase_family(torch, skv, gat)
+
+    # ---- 11. the family's training, segmenter training, the selfcheck
+    phase_training_family(torch, skv, gat)
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
@@ -1087,19 +1106,8 @@ def phase_train_tiny(torch, quant=None):
     if quant and not (rows and min(rows) >= QDense.ACT_INT8_MIN_ROWS):
         raise AssertionError(f"{tag}: QDense saw {sorted(set(rows))} rows, not all >= "
                              f"{QDense.ACT_INT8_MIN_ROWS}")
-    (l_cpu, g_cpu, v_cpu), (l_card, g_card, v_card) = runs["cpu"], runs["card"]
-    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu)
-    largest = max(float(g.abs().max()) for g in g_cpu.values())
-    grad_err, zero_leaves = 0.0, []
-    for n, g in g_cpu.items():
-        scale = float(g.abs().max())
-        if scale < 1e-5 * largest:          # 0 up to roundoff (e.g. key biases)
-            zero_leaves.append(n)
-            grad_err = max(grad_err, float(g_card[n].abs().max()) / largest / 1e-5
-                           * TOL_TRAIN_GRAD)
-            continue
-        grad_err = max(grad_err, float((g_card[n] - g).abs().max()) / scale)
-    upd_err = max(float((v_card[n] - v).abs().max()) for n, v in v_cpu.items())
+    loss_err, grad_err, zero_leaves, upd_err = step_agreement(runs)
+    l_card, g_cpu, g_card = runs["card"][0], runs["cpu"][1], runs["card"][1]
     cross = float(g_card["head.qformer.cross_attn0.k.weight"].abs().sum())
     ok = (loss_err <= TOL_TRAIN_LOSS and grad_err <= TOL_TRAIN_GRAD
           and upd_err <= TOL_TRAIN_UPDATE and launches == {"simple": 0, "hopper": 0}
@@ -1873,6 +1881,464 @@ def phase_family(torch, skv, gat):
     log(f"[family] phase 10 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 11
+# tolerances of the family's and the segmenter's tiny float32 train steps,
+# card vs CPU: TOL_TRAIN_LOSS, TOL_TRAIN_GRAD and TOL_TRAIN_UPDATE (phase 8a's,
+# for the same reasons), and the assignment costs relative to the largest
+# valid cost (float32 products summed in another order)
+TOL_SEG_COST = 1e-5
+FAMILY_TRAIN = ("baseline_r50.py", "baseline_v2_r50.py", "baseline_v3_ov.py")
+SEG_TRAIN_BUCKETS = (1344, 1024, 768)
+
+
+def step_agreement(runs):
+    """{"cpu": (losses, grads, values), "card": ...} of one train step →
+    (largest relative loss difference, largest gradient difference relative
+    to its leaf, leaves 0 up to roundoff (held to 1e-5 of the largest
+    gradient instead, scaled onto TOL_TRAIN_GRAD), largest absolute
+    difference of the values after the update)."""
+    (l_cpu, g_cpu, v_cpu), (l_card, g_card, v_card) = runs["cpu"], runs["card"]
+    loss_err = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in l_cpu)
+    largest = max(float(g.abs().max()) for g in g_cpu.values())
+    grad_err, zero_leaves = 0.0, []
+    for n, g in g_cpu.items():
+        scale = float(g.abs().max())
+        if scale < 1e-5 * largest:
+            zero_leaves.append(n)
+            grad_err = max(grad_err, float(g_card[n].abs().max()) / largest / 1e-5
+                           * TOL_TRAIN_GRAD)
+            continue
+        grad_err = max(grad_err, float((g_card[n] - g).abs().max()) / scale)
+    upd_err = max(float((v_card[n] - v).abs().max()) for n, v in v_cpu.items())
+    return loss_err, grad_err, zero_leaves, upd_err
+
+
+def check_step(tag, runs, extra=""):
+    loss_err, grad_err, zero, upd_err = step_agreement(runs)
+    ok = (loss_err <= TOL_TRAIN_LOSS and grad_err <= TOL_TRAIN_GRAD
+          and upd_err <= TOL_TRAIN_UPDATE)
+    log(f"[{tag}] one step, card vs CPU: losses {runs['card'][0]} (largest relative difference "
+        f"{loss_err:.3e}, tol {TOL_TRAIN_LOSS:g}); {len(runs['cpu'][1])} gradient leaves, largest "
+        f"difference relative to the leaf {grad_err:.3e} (tol {TOL_TRAIN_GRAD:g}; {len(zero)} "
+        f"leaves 0 up to roundoff); values after the update within {upd_err:.3e} (tol "
+        f"{TOL_TRAIN_UPDATE:g}){extra} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the tiny train step on the card disagrees with the CPU")
+
+
+def family_train_batch(M, B=2, seed=0):
+    """Seeded family training examples (the tiny models' 64² images)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    valid = np.stack([np.arange(M) < 5, np.arange(M) < 4])[:B]
+    target = np.zeros((B, M, M, 56), np.float32)
+    target[:, 0, 1, 2] = target[:, 0, 1, 4] = target[:, 2, 0, 3] = target[0, 3, 1, 1] = 1
+    return dict(image=rng.integers(0, 255, (B, 64, 64, 3)).astype(np.float32),
+                object_masks=(rng.uniform(size=(B, M, 16, 16)) > 0.7) & valid[:, :, None, None],
+                object_labels=rng.integers(0, 133, (B, M)).astype(np.int32),
+                object_valid=valid, relation_target=target)
+
+
+def phase_family_train_tiny(torch):
+    """Phase 11a: one ``M2FTrainer`` step of the tiny float32 v1, v2 (all
+    five experts and the gate, text KV store), v3 and v1 with
+    ``object_token_size`` 2, on the card against the CPU (the same weights
+    and batch): losses, every gradient leaf, the values after the update;
+    then one ``SegmenterTrainer`` step in each class mode (Mask2Former,
+    ``softmax_void``; the OpenSeeD segmenter with trainable class
+    embeddings, ``sigmoid``): the costs within TOL_SEG_COST, the Hungarian
+    assignments identical, and the step as above."""
+    import dataclasses
+
+    import numpy as np
+
+    from openpsg_tpu_torch.models.detectors.mask2former_relation import PSGMask2FormerRelation
+    from openpsg_tpu_torch.models.segmenter.mask2former import (
+        Mask2FormerConfig,
+        Mask2FormerSegmenter,
+    )
+    from openpsg_tpu_torch.models.segmenter.openseed import OpenSeedSegmenter, SegmenterConfig
+    from openpsg_tpu_torch.models.common import init_params
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca
+    from openpsg_tpu_torch.train.segmenter_trainer import SegmenterTrainer, SegTrainBatch
+    from openpsg_tpu_torch.train.trainer import (
+        AdamW,
+        M2FTrainBatch,
+        M2FTrainer,
+        make_lr_schedule,
+        make_optimizer,
+    )
+
+    cases = family_cases()
+    cases = {"v1": cases["v1 attention"], "v2 experts + gate, text KV": cases["v2 experts, MoE v1"],
+             "v3": cases["v3 closed"],
+             "v1 object_token_size 2": dataclasses.replace(cases["v1 attention"],
+                                                           object_token_size=2)}
+    fca.reset_launches()
+    for name, cfg in cases.items():
+        kv = family_kv(cfg.head_v2.text_embedding_size) if cfg.head_version == "v2" else None
+        cpu = PSGMask2FormerRelation(cfg, seed=3, device="cpu", text_kv=kv)
+        gpu = PSGMask2FormerRelation(cfg, seed=3, device="cuda", text_kv=kv)
+        gpu.segmenter.load_state_dict(cpu.segmenter.state_dict())
+        gpu.head.load_state_dict(cpu.head.state_dict())
+        gpu.object_cls_embed = cpu.object_cls_embed.cuda()
+        arrays = family_train_batch(cfg.max_objects_padded)
+        runs = {}
+        for side, m in (("cpu", cpu), ("card", gpu)):
+            tr = M2FTrainer(m)
+            losses, grads = tr.gradients(M2FTrainBatch.from_numpy(arrays, m.device))
+            opt = make_optimizer(make_lr_schedule(steps_per_epoch=10))
+            opt.step(tr.master, grads, opt.init(tr.master))
+            runs[side] = ({k: float(v) for k, v in losses.items()},
+                          {n: g.cpu() for n, g in grads.items()},
+                          {n: v.detach().cpu() for n, v in tr.master.items()})
+        check_step(f"family-train-tiny {name}", runs)
+    launches = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+    if any(launches.values()):
+        raise AssertionError(f"the family's train steps launched the shared-KV kernel {launches}")
+
+    rng = np.random.default_rng(4)
+    gt_masks = np.zeros((2, 4, 16, 16), bool)
+    gt_masks[:, 0, :8, :8] = gt_masks[:, 1, 8:, 8:] = gt_masks[1, 2, :8, 8:] = True
+    arrays = dict(image=rng.integers(0, 255, (2, 64, 64, 3)).astype(np.float32),
+                  gt_masks=gt_masks, gt_labels=np.asarray([[1, 3, 0, 0], [2, 3, 5, 0]], np.int32),
+                  gt_valid=np.asarray([[1, 1, 0, 0], [1, 1, 1, 0]], bool))
+    ce = torch.from_numpy(rng.normal(size=(12, SegmenterConfig.tiny_test().proj_dim))
+                          .astype(np.float32))
+    for mode in ("softmax_void", "sigmoid"):
+        make = ((lambda: Mask2FormerSegmenter(Mask2FormerConfig.tiny_test()))
+                if mode == "softmax_void" else
+                (lambda: OpenSeedSegmenter(SegmenterConfig.tiny_test())))
+        ref = make()
+        init_params(ref, torch.Generator().manual_seed(5))
+        runs, costs, matches = {}, {}, {}
+        for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+            seg = make().to(dev)
+            seg.load_state_dict(ref.state_dict())
+            if mode == "softmax_void":
+                tr = SegmenterTrainer(seg, num_classes=8)
+            else:
+                emb = ce.clone().to(dev)
+                tr = SegmenterTrainer(
+                    seg, num_classes=12, cls_mode="sigmoid",
+                    apply_fn=lambda img, seg=seg, emb=emb: seg(img, emb),
+                    params={**{f"seg.{n}": p for n, p in seg.named_parameters()}, "ce": emb})
+            batch = SegTrainBatch.from_numpy(arrays, dev)
+            costs[side] = tr.cost_matrices(batch).cpu()
+            matches[side] = tr.assign(costs[side].numpy(), arrays["gt_valid"])
+            losses, grads = tr.gradients(batch, torch.from_numpy(matches[side]).to(dev))
+            opt = AdamW(lambda count: 1e-7, max_norm=float("inf"), weight_decay=1e-4)
+            opt.step(tr.master, grads, opt.init(tr.master))
+            runs[side] = ({k: float(v) for k, v in losses.items()},
+                          {n: g.cpu() for n, g in grads.items()},
+                          {n: v.detach().cpu() for n, v in tr.master.items()})
+        ok = costs["cpu"] < 1e8
+        cost_err = float((costs["card"][ok] - costs["cpu"][ok]).abs().max()
+                         / costs["cpu"][ok].abs().max())
+        same = bool(np.array_equal(matches["card"], matches["cpu"]))
+        if not (cost_err <= TOL_SEG_COST and same):
+            raise AssertionError(f"segmenter-train-tiny {mode}: costs differ by {cost_err:.3e} "
+                                 f"(tol {TOL_SEG_COST:g}), assignments identical {same}")
+        check_step(f"segmenter-train-tiny {mode}", runs,
+                   f"; costs within {cost_err:.3e} of the largest (tol {TOL_SEG_COST:g}), "
+                   f"Hungarian assignments identical ({int((matches['cpu'] >= 0).sum())} matches)")
+
+
+def phase_family_train(torch, skv, gat, root, ann):
+    """Phase 11b: ``tools.train.main`` at full width for v1, v2 and v3
+    (``baseline_r50.py``, ``baseline_v2_r50.py``, ``baseline_v3_ov.py``) on
+    phase 8's fixture, 4 steps each with ``--stage-times`` (v1 also with
+    ``--validate --val-limit 2``): finite losses, the head and the class
+    embeddings changed, the segmenter bitwise unchanged, a checkpoint of
+    exactly ``{head, object_cls_embed}``; then the infer tool with
+    ``--checkpoint --gt-masks`` on 2 images restores the trained values
+    bitwise into a model reset to its initial ones.  s/step (median of
+    steps 2-4), the stage split, peak memory and checkpoint bytes; no
+    kernel launch."""
+    import numpy as np
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import infer, train
+    from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
+
+    cfgs = os.path.join(HERE, "openpsg_tpu_torch", "configs", "psg")
+    split = f"dict(ann_file={ann!r}, img_prefix={root!r}, seg_prefix={root!r})"
+    fca.reset_launches()
+    mg.sparse_row_gather.launches = 0
+    out = {}
+    for name in FAMILY_TRAIN:
+        torch.cuda.empty_cache()
+        cfg_path = os.path.join(root, f"train_{name}")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(cfgs, name)!r}]\n"
+                    f"data = dict(train={split}, val={split}, test={split})\n"
+                    "runner = dict(max_epochs=1)\nlog_config = dict(interval=1)\n")
+        model = build_detector_from_config(Config.fromfile(cfg_path), seed=0)
+        groups = model.param_groups()
+        seg_before = {n: t.detach().clone() for n, t in groups["segmenter"].items()}
+        before = {f"{g}.{n}": t.detach().clone() for g in ("head", "object_cls_embed")
+                  for n, t in groups[g].items()}
+        argv = [cfg_path, "--work-dir", os.path.join(root, f"wd_{name}"), "--max-steps", "4",
+                "--stage-times"]
+        if name == "baseline_r50.py":
+            argv += ["--validate", "--val-limit", "2"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = train.main(argv, model=model)
+        wall = time.perf_counter() - t0
+        values = [v for m in stats["metrics"] for v in m.values()]
+        trained = {f"{g}.{n}": t.detach().clone() for g in ("head", "object_cls_embed")
+                   for n, t in groups[g].items()}
+        changed = sum(not torch.equal(t, before[n]) for n, t in trained.items())
+        seg_same = all(torch.equal(t, seg_before[n]) for n, t in groups["segmenter"].items())
+        ckpt = PartCheckpointer(os.path.join(root, f"wd_{name}", "ckpts"))
+        params, opt_state, meta, step = ckpt.restore()
+        step_dir = os.path.join(ckpt.directory, f"step_{step}")
+        sizes = {f: os.path.getsize(os.path.join(step_dir, f)) for f in sorted(os.listdir(step_dir))}
+        if (stats["steps"] != 4 or not all(np.isfinite(values)) or not changed or not seg_same
+                or set(params) != set(trained) or set(opt_state["mu"]) != set(trained)):
+            raise AssertionError(f"{name}: {stats['steps']} steps, metrics finite "
+                                 f"{all(np.isfinite(values))}, {changed} trainable tensors "
+                                 f"changed, segmenter unchanged {seg_same}, checkpoint of "
+                                 f"{len(params)} tensors for {len(trained)}")
+        rows = stats["stage_ms"][1:]
+        split_ms = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+        med = statistics.median(stats["step_seconds"][1:])
+        with torch.no_grad():
+            for n, t in before.items():
+                g, p = n.split(".", 1)
+                groups[g][p].copy_(t)
+        res_dir = os.path.join(root, f"out_{name}")
+        i_stats = infer.main(["--config", cfg_path, "--checkpoint", ckpt.directory,
+                              "--test-file", ann, "--data-dir", root, "--output-dir", res_dir,
+                              "--gt-masks", "--limit", "2"], model=model)
+        restored = all(torch.equal(groups[n.split(".")[0]][n.split(".", 1)[1]], t)
+                       for n, t in trained.items())
+        if not restored or i_stats["n_images"] != 2:
+            raise AssertionError(f"{name}: the infer tool restored the trained values "
+                                 f"bitwise {restored}; {i_stats['n_images']} images")
+        m0, m1 = stats["metrics"][0], stats["metrics"][-1]
+        loss_keys = sorted(k for k in m0 if k.startswith("loss"))
+        out[name] = dict(step_seconds=stats["step_seconds"], median_step_seconds=med,
+                         split_ms=split_ms, peak_memory_gib=stats["peak_memory_bytes"] / 2**30,
+                         checkpoint_bytes=sizes, tensors=len(params),
+                         values=sum(v.numel() for v in params.values()), val=stats["val"],
+                         metrics=stats["metrics"])
+        log(f"[family-train] {name} (head {model.cfg.head_version}, trainable "
+            f"{sum(v.numel() for v in params.values())} values in {len(params)} tensors): "
+            f"4 steps in {wall:.1f} s; step seconds "
+            + ", ".join(f"{t:.3f}" for t in stats["step_seconds"])
+            + f"; median of steps 2-4 {med:.3f} s/step; split (ms, median of steps 2-4) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split_ms.items())
+            + f"; peak memory {out[name]['peak_memory_gib']:.2f} GiB"
+            + (" (training and validation)" if stats["val"] else "")
+            + "; " + ", ".join(f"{k} {m0[k]:.4f} -> {m1[k]:.4f}" for k in loss_keys)
+            + f"; {changed}/{len(trained)} trainable tensors changed, segmenter bitwise "
+            f"unchanged; checkpoint " + ", ".join(f"{f} {b / 2**20:.1f} MiB" for f, b in
+                                                  sizes.items())
+            + f"; restored bitwise by the infer tool (--checkpoint --gt-masks, 2 images in "
+            f"{i_stats['seconds']:.2f} s)" + (f"; val {stats['val'][0]}" if stats["val"] else ""))
+        del model, groups, before, trained, seg_before, params, opt_state
+    n_skv = fca.flash_shared_kv_cross_attn.launches
+    n_gat = mg.sparse_row_gather.launches
+    skv["launches_by_path"]["family_train"] = n_skv
+    gat["launches_by_path"]["family_train"] = n_gat
+    log(f"[family-train] flash_shared_kv_cross_attn launches {n_skv}, sparse_row_gather "
+        f"launches {n_gat} in the family's training, validation and restore")
+    if n_skv or n_gat:
+        raise AssertionError("the family's training path launched a kernel")
+    log("[family-train] stats " + json.dumps(out))
+
+
+def phase_segmenter_train(torch, root, ann):
+    """Phase 11c: ``SegmenterTrainer`` at full width: ``baseline_r50.py``'s
+    Mask2Former (bf16, float32 masters), ``softmax_void``, B = 1, 3 steps
+    on one of phase 8's train images: finite losses; ms per step split
+    into forward, cost, assign, loss and backward, optimizer; peak memory.
+    Tries the 1344² bucket first and, only if it runs out of memory,
+    smaller ones, saying so."""
+    import numpy as np
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.data.preprocess import Preprocessor
+    from openpsg_tpu_torch.data.psg_dataset import PSGDataset
+    from openpsg_tpu_torch.train.segmenter_trainer import SegmenterTrainer, SegTrainBatch
+    from openpsg_tpu_torch.train.trainer import AdamW
+
+    model = build_detector_from_config(Config.fromfile(os.path.join(
+        HERE, "openpsg_tpu_torch", "configs", "psg", "baseline_r50.py")), seed=0)
+    seg = model.segmenter
+    del model.head
+    ds = PSGDataset(ann, img_prefix=root, seg_prefix=root, split="train")
+    for side in SEG_TRAIN_BUCKETS:
+        torch.cuda.empty_cache()
+        ex = ds.load_example(0, Preprocessor(scale=(side, side)), 32)
+        batch = SegTrainBatch.from_numpy(dict(
+            image=ex["image"][None], gt_masks=ex["object_masks"][None],
+            gt_labels=ex["object_labels"][None].astype(np.int32),
+            gt_valid=ex["object_valid"][None]), "cuda")
+        tr = SegmenterTrainer(seg, num_classes=len(model.class_names))
+        opt = AdamW(lambda count: 1e-5, max_norm=float("inf"), weight_decay=1e-4)
+        state = opt.init(tr.master)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, losses = [], []
+        try:
+            for _ in range(3):
+                times = {}
+                t0 = time.perf_counter()
+                d = tr.train_step(batch, opt, state, times)
+                torch.cuda.synchronize()
+                times["step"] = (time.perf_counter() - t0) * 1e3
+                rows.append(times)
+                losses.append({k: float(v) for k, v in d.items()})
+        except torch.cuda.OutOfMemoryError:
+            log(f"[segmenter-train] {side}² bucket: out of memory; trying a smaller bucket")
+            del tr, state, opt, batch
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(np.isfinite(list(d.values())).all() for d in losses):
+            raise AssertionError(f"segmenter training losses not finite: {losses}")
+        split = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[0]}
+        log(f"[segmenter-train] baseline_r50 Mask2Former ({seg.cfg.dtype}, float32 masters, "
+            f"{sum(p.numel() for p in tr.master.values())} values), softmax_void, B=1 at "
+            f"{side}² ({int(ex['object_valid'].sum())} objects, {seg.cfg.num_queries} queries): "
+            f"3 steps, ms per step " + ", ".join(f"{r['step']:.1f}" for r in rows)
+            + "; median of steps 2-3 (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+            + f"; peak memory {peak:.2f} GiB; losses " + json.dumps(losses[0]) + " -> "
+            + json.dumps(losses[-1]))
+        log("[segmenter-train] stats " + json.dumps(dict(bucket=side, rows_ms=rows,
+                                                         split_ms=split, peak_memory_gib=peak,
+                                                         losses=losses)))
+        break
+    else:
+        raise AssertionError("segmenter training fits no bucket")
+    for p in tr.params.values():
+        p.requires_grad_(False)
+    del model, seg, tr, state, opt, batch
+
+
+def phase_selfcheck(torch, skv, gat):
+    """Phase 11d: ``tools.selfcheck_e2e`` on the card at its defaults (900
+    segmenter steps, 400 head and LLM steps, the 6-image 64² fixture):
+    strict R@20 > 0; mR@20 and the ground-truth-mask upper bound; per
+    held-out image the objects fusion kept, the decode trips and the pair
+    mask's density; the shared-KV kernel's launches by variant.  Then, on
+    one held-out image, the trained model's Q-Former with the kernel
+    against the plain attention forced (:func:`compare_head`,
+    TOL_HEAD_F32): the first learned, sparse pair masks the kernel sees on
+    an inference path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from openpsg_tpu_torch.data.preprocess import Preprocessor, load_image_rgb
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import selfcheck_e2e
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_selfcheck_")
+    try:
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        t0 = time.perf_counter()
+        res = selfcheck_e2e.run(root, device="cuda", log=lambda *a: None)
+        wall = time.perf_counter() - t0
+        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+        skv["launches_by_path"]["selfcheck"] = fca.flash_shared_kv_cross_attn.launches
+        skv["launches_by_variant"]["selfcheck"] = by_variant
+        gat["launches_by_path"]["selfcheck"] = mg.sparse_row_gather.launches
+        s, g = res["scores"], res["gt_scores"]
+        log(f"[selfcheck] tools.selfcheck_e2e on the card (900 + 400 steps): strict R@20 "
+            f"{s['R@20']:.1f}, mR@20 {s['mR@20']:.1f}; ground-truth-mask upper bound R@20 "
+            f"{g['R@20']:.1f}, mR@20 {g['mR@20']:.1f}; phases (s) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
+            + f"; in all {wall:.1f} s; segmenter losses {json.dumps(res['seg_losses'][-1])}; "
+            f"relation losses {json.dumps(res['rel_losses'][-1])}; shared-KV launches "
+            f"{by_variant}, sparse_row_gather {mg.sparse_row_gather.launches}")
+        if not s["R@20"] > 0:
+            raise AssertionError("selfcheck: strict R@20 is 0 on the card")
+
+        model = res["pipeline"]
+        with open(res["ann"], encoding="utf-8") as f:
+            data = json.load(f)
+        held_out = [d for d in data["data"] if d["image_id"] in set(data["test_image_ids"])]
+        H, _ = model._model_hw()
+        pre = Preprocessor(scale=(H, H))
+        per, first = [], None
+        for d in held_out:
+            ex = pre(load_image_rgb(os.path.join(root, d["file_name"])))
+            r = model.infer(ex["image"].astype(np.float32), ex["img_shape"])
+            img = torch.as_tensor(ex["image"].astype(np.float32), device="cuda")
+            seg = model.segment(img)
+            sel = model.fuse_select(seg, ex["img_shape"])
+            _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *sel))
+            mask = calls[0][3]
+            per.append(dict(objects=len(r["rel_results"]["object_id_list"]),
+                            decode_trips=int(r["decode_steps"]),
+                            pair_mask_density=float(mask.float().mean())))
+            if first is None:
+                first = (seg["mask_features"], sel)
+        log(f"[selfcheck] held-out images (learned weights): " + "; ".join(
+            f"image {i}: {p['objects']} objects kept, {p['decode_trips']} decode trips "
+            f"(of {model.cfg.max_new_tokens}), pair mask density {p['pair_mask_density']:.3f}"
+            for i, p in enumerate(per)))
+        mf, sel = first
+        M = model.cfg.head.max_objects_padded
+        valid = sel[1]
+        pair = torch.arange(M * M, device=valid.device)
+        pair_valid = valid[pair // M] & valid[pair % M]
+
+        def run(plain):
+            heads = {}
+            hook = model.head.register_forward_hook(lambda mod, inp, o: heads.update(o))
+            try:
+                (o, _, _), calls = kernel_calls(
+                    lambda: model.tail_pre(mf, *sel, plain_attention=plain))
+            finally:
+                hook.remove()
+            want = 0 if plain else model.cfg.head.qformer.num_layers
+            if len(calls) != want:
+                raise AssertionError(f"{len(calls)} kernel calls, expected {want}")
+            return o, heads
+
+        compare_head(torch, "selfcheck (learned masks, f32)", TOL_HEAD_F32, M, pair_valid,
+                     run(False), run(True))
+        log("[selfcheck] stats " + json.dumps(dict(
+            scores=s, gt_scores=g, seconds=res["seconds"], per_image=per,
+            launches_by_variant=by_variant, seg_losses=res["seg_losses"],
+            rel_losses=res["rel_losses"])))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_training_family(torch, skv, gat):
+    """Phase 11: the closed-set family's training and segmenter training
+    (:func:`phase_family_train_tiny`, :func:`phase_family_train`,
+    :func:`phase_segmenter_train`, :func:`phase_selfcheck`)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    phase_family_train_tiny(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_family_train_")
+    try:
+        ann = write_png_fixture(root, VAL_SIZES[:2], seed=1, train_sizes=TRAIN_SIZES)
+        phase_family_train(torch, skv, gat, root, ann)
+        torch.cuda.empty_cache()
+        phase_segmenter_train(torch, root, ann)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_selfcheck(torch, skv, gat)
+    torch.cuda.empty_cache()
+    log(f"[family-train] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def compare_runs(torch, tag, a, b):
     """Two runs of one model on the same images (:func:`per_image` lists),
     run b teacher-forced on run a's tokens: everything before the LLM runs
@@ -2029,7 +2495,7 @@ def agree_ranked(torch, name, tol, idx_k, idx_p, full_k, full_p):
     above = torch.cat([torch.full((1,), float("inf"), device=d.device), d[:-1]])
     separated = torch.minimum(above, d) > 2 * err
     same = idx_k == idx_p
-    drift = float((fp[idx_k] - sp[:k]).abs().max())
+    drift = float((fp[idx_k].clamp(min=-1e30) - sp[:k]).abs().max())
     bad = int((separated & ~same).sum())
     log(f"[plain-vs-kernel] {name}: max score diff {err:.3e} (tol {tol:g}); "
         f"{int(separated.sum())}/{k} ranks separated by > 2*diff, {bad} of them differ; "

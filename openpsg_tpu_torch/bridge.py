@@ -127,12 +127,14 @@ def _jax_leaf(module: torch.nn.Module, leaf: str) -> str:
     return leaf  # RMSNorm's own 'weight
 
 
-def jax_paths(module: torch.nn.Module, part: str) -> Dict[str, str]:
+def jax_paths(module: torch.nn.Module, part: str, scanned=None) -> Dict[str, str]:
     """{port parameter name: '/'-joined path of its JAX leaf} for one part's
     module, as ``jax.tree_util`` spells the path in ``{part: {"params":
-    ...}}`` (a scan stack's layers share their stacked leaf's path)."""
+    ...}}`` (a scan stack's layers share their stacked leaf's path;
+    ``scanned`` as for :func:`load_part`, default :data:`SCANNED`)."""
     modules = dict(module.named_modules())
-    port_scans = {v[1:]: k[1:] for k, v in SCANNED.items() if k[0] == part}
+    scanned = SCANNED if scanned is None else scanned
+    port_scans = {v[1:]: k[1:] for k, v in scanned.items() if k[0] == part}
     out = {}
     for name, _ in module.named_parameters():
         *mod_path, leaf = name.split(".")

@@ -142,8 +142,11 @@ class QueryDecoder(nn.Module):
             torch.tensor(float("inf"), device=dev),
         )
         proposal_boxes = torch.sigmoid(proposal_logits + enc_delta.float())
-        queries = enc_out[top_idx]
-        boxes = proposal_boxes[top_idx]
+        # the proposals start the decoder without a gradient (the JAX
+        # decoder's stop_gradient): in training, the encoder's proposal
+        # layers get none
+        queries = enc_out[top_idx].detach()
+        boxes = proposal_boxes[top_idx].detach()
 
         for layer in self.layers:
             queries, boxes = layer(queries, boxes, memory, spatial_shapes)

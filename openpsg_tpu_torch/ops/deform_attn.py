@@ -47,6 +47,16 @@ def ms_deform_attn(
     return out.permute(0, 2, 1, 3).reshape(B, Lq, nH * hd).to(value.dtype)
 
 
+def _tent(d: torch.Tensor) -> torch.Tensor:
+    """``max(0, 1 - |d|)`` with the JAX package's derivatives at its kinks:
+    ``jnp.abs`` takes slope +1 at 0 and ``jnp.maximum`` splits a tie's
+    gradient in half (``abs`` and ``clamp`` here would give 0 and 1).  A
+    sample on a pixel centre, as the offsets' grid initialization places
+    every one, sits on those kinks."""
+    return torch.maximum(1.0 - torch.where(d >= 0, d, -d), torch.zeros((), dtype=d.dtype,
+                                                                        device=d.device))
+
+
 def level_samples(value, spatial_shapes, sampling_locations, attention_weights,
                   lvl: int, kl: int):
     """Level ``lvl``'s share of :func:`ms_deform_attn` for the first ``kl``
@@ -67,10 +77,7 @@ def level_samples(value, spatial_shapes, sampling_locations, attention_weights,
     y = loc[..., 1] * h - 0.5
     bx = torch.clamp(torch.floor(x), 0, max(w - 2, 0))
     by = torch.clamp(torch.floor(y), 0, max(h - 2, 0))
-    fx0 = torch.clamp(1.0 - (x - bx).abs(), min=0.0)
-    fx1 = torch.clamp(1.0 - (x - (bx + 1)).abs(), min=0.0)
-    fy0 = torch.clamp(1.0 - (y - by).abs(), min=0.0)
-    fy1 = torch.clamp(1.0 - (y - (by + 1)).abs(), min=0.0)
+    fx0, fx1, fy0, fy1 = _tent(torch.stack([x - bx, x - (bx + 1), y - by, y - (by + 1)]))
     aw = attention_weights[:, :, :, lvl, :kl].float()
     cw = torch.stack([fx0 * fy0, fx1 * fy0, fx0 * fy1, fx1 * fy1], dim=-1) * aw[..., None]
     idx = (by * w + bx).long().permute(0, 2, 1, 3).reshape(B, nH, Lq * kl)

@@ -6,23 +6,27 @@
 Flow: load the config (``replace_cfg_vals``, the ``MMDET_DATASETS``
 override, ``--cfg-options``), dump it into the work directory beside a
 timestamped log, build the model (seeded random weights), read the train
-split, then train: per step a host batch (``PSGDataset.iter_train``, pairs
-sampled by ``sample_training_pairs``), one :class:`V4Trainer` step, a log
-line every ``log_config.interval`` steps in the reference's format; a part
+split, then train: per step a host batch (``PSGDataset.iter_train``; for
+PSG v4 pairs sampled by ``sample_training_pairs``), one step of the
+model's trainer (:class:`V4Trainer` for PSG v4, :class:`M2FTrainer` for the
+closed-set v1-v3 family, as the JAX tool chooses), a log line every
+``log_config.interval`` steps in the reference's format; a part
 checkpoint (the trainable groups and the optimizer state only) after each
 epoch under ``<work_dir>/ckpts``; with ``--validate`` (or a ``('val', n)``
 workflow phase) panoptic PQ on the val split after each epoch.
 
 The groups ``train_cfg.freeze_layers`` leaves trainable are optimized
-(the reference recipe: the relation head); ``optimizer.paramwise_cfg``,
+(the reference recipe: the relation head; for the family, the head and
+the object class embeddings); ``optimizer.paramwise_cfg``,
 the train ``Resize`` range (as scale jitter), ``--auto-scale-lr`` and the
 schedule are applied as the JAX tool applies them.  The port trains on one
 device: a ``tpu.mesh`` asking for more runs unsharded, and ``--launcher``
 other than ``none`` is refused (both wait for the parallelism slice).
 
 Runs on the card unless ``--device cpu`` is given.  ``--stage-times``
-splits each step into data, segmenter, head, LLM forward and backward, and
-optimizer, synchronizing the card around each stage.  ``main(argv,
+splits each step into data, segmenter, head, LLM forward and backward
+(PSG v4; the family's backward is in ``head``), and optimizer,
+synchronizing the card around each stage.  ``main(argv,
 model=...)`` takes a ready model in place of building one and returns the
 run's statistics.
 """
@@ -204,9 +208,12 @@ def main(argv=None, model=None):
         trainable_groups,
     )
     from openpsg_tpu_torch.train.trainer import (
+        M2FTrainBatch,
+        M2FTrainer,
         TrainBatch,
         V4Trainer,
         host_batch,
+        m2f_host_batch,
         make_lr_schedule,
         make_optimizer,
         paramwise_multipliers,
@@ -220,9 +227,7 @@ def main(argv=None, model=None):
 
     from openpsg_tpu_torch.models.detectors.mask2former_relation import DETECTOR_TYPES
 
-    if cfg.model.get("type") in DETECTOR_TYPES:
-        raise SystemExit(f"model type {cfg.model.get('type')!r}: training the closed-set "
-                         "v1-v3 family is not ported yet (the tool trains PSG v4)")
+    is_family = cfg.model.get("type") in DETECTOR_TYPES
     device = resolve_device(args.device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
     os.makedirs(work_dir, exist_ok=True)
@@ -285,7 +290,7 @@ def main(argv=None, model=None):
     trainable = trainable_groups(cfg)
     logger.info(f"trainable groups: {list(trainable)} frozen: "
                 f"{sorted(freeze_keys_from_config(cfg))}")
-    trainer = V4Trainer(model, trainable=trainable)
+    trainer = (M2FTrainer if is_family else V4Trainer)(model, trainable=trainable)
 
     lr_mult = decay_mult = None
     pw = dict(cfg.optimizer.get("paramwise_cfg", {}) or {})
@@ -312,8 +317,11 @@ def main(argv=None, model=None):
 
     H, _ = model._model_hw()
     preproc = Preprocessor(scale=(H, H))
-    hc = model.cfg.head
-    M, S, T = hc.max_objects_padded, hc.sampled_qformer_batch_size, hc.max_llm_forward_num
+    if is_family:
+        M = model.cfg.max_objects_padded
+    else:
+        hc = model.cfg.head
+        M, S, T = hc.max_objects_padded, hc.sampled_qformer_batch_size, hc.max_llm_forward_num
     L_LAB = 16
     nprng = np.random.default_rng(args.seed)
     scale_jitter = _scale_jitter(cfg)
@@ -336,8 +344,12 @@ def main(argv=None, model=None):
             examples = next(batches, None)
             if examples is None:
                 break
-            batch = TrainBatch.from_numpy(host_batch(
-                examples, model.tokenizer, model.relation_names, nprng, S, T, L_LAB), device)
+            if is_family:
+                batch = M2FTrainBatch.from_numpy(m2f_host_batch(examples), device)
+            else:
+                batch = TrainBatch.from_numpy(host_batch(
+                    examples, model.tokenizer, model.relation_names, nprng, S, T, L_LAB),
+                    device)
             times = {"data": (time.perf_counter() - t0) * 1e3} if args.stage_times else None
             metrics = trainer.train_step(batch, opt, opt_state, times)
             sync()

@@ -1,6 +1,9 @@
-"""The v4 training step (counterpart of ``openpsg_tpu/train/trainer.py``).
+"""The training steps (counterpart of ``openpsg_tpu/train/trainer.py``):
+:class:`V4Trainer` for PSG v4, :class:`M2FTrainer` for the closed-set
+v1 / v2 / v3 family, both on :class:`MasterTrainer`'s float32 masters and
+the JAX package's optimizer chain (:class:`AdamW`).
 
-Reference recipe (configs/psg/baseline_v4_ov.py): AdamW lr 1e-4, weight
+PSG v4's reference recipe (configs/psg/baseline_v4_ov.py): AdamW lr 1e-4, weight
 decay 0.05, eps 1e-8, betas (0.9, 0.999), gradient clip 0.01, linear warmup
 over 500 iterations from ratio 0.001, lr ×0.1 at epochs 6 and 10.  Frozen:
 the segmenter, the text encoder, the class embeddings and the LLM; the
@@ -33,8 +36,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from openpsg_tpu_torch.bridge import jax_paths
+from openpsg_tpu_torch.bridge import jax_paths, scan_prefixes
+from openpsg_tpu_torch.models.detectors import mask2former_relation as m2f
 from openpsg_tpu_torch.models.detectors.psg_v4 import _stage
+from openpsg_tpu_torch.models.relation.head_v2 import RelationHeadV2
 from openpsg_tpu_torch.models.relation.head_v4 import assemble_pair_instructions, right_align
 from openpsg_tpu_torch.models.segmenter.openseed import normalize_image
 from openpsg_tpu_torch.train import losses
@@ -74,6 +79,21 @@ def make_lr_schedule(base_lr: float = 1e-4, warmup_iters: int = 500,
         epoch = count // steps_per_epoch
         decay = f32(gamma) ** f32(sum(epoch >= e for e in step_epochs))
         return float((warm if count < warmup_iters else f32(base_lr)) * decay)
+
+    return schedule
+
+
+def make_cosine_schedule(init_value: float, decay_steps: int, alpha: float = 0.0
+                         ) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule`` in float32: ``init_value`` times
+    ``(1 - alpha) * 0.5 * (1 + cos(pi * min(count, decay_steps) /
+    decay_steps)) + alpha``."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        frac = f32(min(count, decay_steps)) / f32(decay_steps)
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * frac, dtype=f32))
+        return float(f32(init_value) * (f32(1.0 - alpha) * cosine + f32(alpha)))
 
     return schedule
 
@@ -153,20 +173,26 @@ class AdamW:
         clip = not bool(norm < self.max_norm)
         count = int(state["count"])
         t = count + 1
-        bc1 = torch.tensor(1.0 - ADAM_B1 ** t, dtype=torch.float32)
-        bc2 = torch.tensor(1.0 - ADAM_B2 ** t, dtype=torch.float32)
-        step_size = -self.schedule(count)
+        # the step's scalars as float32 tensors on each parameter's device,
+        # copied there once per step: CUDA divides by a host scalar through
+        # its reciprocal, which optax does not
+        host = torch.tensor([1.0 - ADAM_B1 ** t, 1.0 - ADAM_B2 ** t, -self.schedule(count)],
+                            dtype=torch.float32)
+        scalars = {}
         for name, p in params.items():
+            if p.device not in scalars:
+                scalars[p.device] = host.to(p.device).unbind()
+            bc1, bc2, step_size = scalars[p.device]
             g = grads[name]
             if clip:
                 g = (g / norm) * self.max_norm
             mu, nu = state["mu"][name], state["nu"][name]
             mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
             nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
-            u = (mu / bc1.to(mu.device)) / (torch.sqrt(nu / bc2.to(nu.device)) + ADAM_EPS)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
             wd = self.weight_decay * (1.0 if self.decay_mult is None else self.decay_mult[name])
             u = u + wd * p
-            u = torch.tensor(step_size, dtype=u.dtype, device=u.device) * u
+            u = step_size * u
             if self.lr_mult is not None:
                 u = u * self.lr_mult[name]
             p.add_(u)
@@ -181,40 +207,22 @@ def make_optimizer(schedule, max_norm: float = 0.01, weight_decay: float = 0.05,
                  lr_mult=lr_mult, decay_mult=decay_mult)
 
 
-class V4Trainer:
-    """The training step of a :class:`~openpsg_tpu_torch.models.detectors.psg_v4.PSGv4`.
+class MasterTrainer:
+    """Float32 master values of a set of trainable tensors.
 
-    ``trainable``: the groups to optimize, of :data:`TRAINABLE_GROUPS`;
-    the reference freezes the segmenter and the LLM, so ``("head",)``; add
-    ``"llm"`` to fine-tune the language model too (the scratch recipe).
-    The frozen segmenter runs without autograd.  :attr:`master` holds the
-    float32 values the optimizer updates."""
+    Each tensor is optimized as a float32 value: a float32 tensor is its
+    own master; a bf16 one gets a float32 copy, and the optimizer's result
+    is written into it rounded (:meth:`_sync_modules`).  Its gradient is
+    the cotangent widened to float32, as flax gives it for float32
+    parameters cast to bf16 at use."""
 
-    def __init__(self, pipeline, trainable: Sequence[str] = ("head",),
-                 rel_cls_loss_weight: float = 50.0):
-        unknown = set(trainable) - set(TRAINABLE_GROUPS)
-        if unknown:
-            raise ValueError(f"cannot train {sorted(unknown)}: trainable groups are "
-                             f"{TRAINABLE_GROUPS}")
-        self.pipeline = pipeline
-        self.trainable = tuple(trainable)
-        self.rel_cls_loss_weight = rel_cls_loss_weight
-        self.params: Dict[str, torch.Tensor] = {}   # "group.name" → module parameter
-        self.master: Dict[str, torch.Tensor] = {}   # "group.name" → float32 value
-        groups = pipeline.param_groups()
-        for g in self.trainable:
-            for n, p in groups[g].items():
-                p.requires_grad_(True)
-                self.params[f"{g}.{n}"] = p
-                self.master[f"{g}.{n}"] = p if p.dtype == torch.float32 else p.detach().float()
-
-    def jax_paths(self) -> Dict[str, str]:
-        """{trainable parameter: its JAX leaf path} (for ``paramwise_cfg``)."""
-        out = {}
-        for g in self.trainable:
-            out.update({f"{g}.{n}": path for n, path in
-                        jax_paths(getattr(self.pipeline, g), g).items()})
-        return out
+    def _init_masters(self, params: Dict[str, torch.Tensor]) -> None:
+        self.params: Dict[str, torch.Tensor] = {}   # name → module tensor
+        self.master: Dict[str, torch.Tensor] = {}   # name → float32 value
+        for n, p in params.items():
+            p.requires_grad_(True)
+            self.params[n] = p
+            self.master[n] = p if p.dtype == torch.float32 else p.detach().float()
 
     @torch.no_grad()
     def load_master(self, values: Dict[str, torch.Tensor]) -> None:
@@ -233,6 +241,125 @@ class V4Trainer:
         for n, p in self.params.items():
             if self.master[n] is not p:
                 p.copy_(self.master[n])
+
+    def _zero_grads(self) -> None:
+        for prm in self.params.values():
+            prm.grad = None
+
+    def _take_grads(self) -> Dict[str, torch.Tensor]:
+        """The accumulated gradients, widened to float32 (zeros where none
+        reached a tensor), and the tensors' ``grad`` cleared."""
+        grads = {}
+        for n, prm in self.params.items():
+            g = prm.grad
+            grads[n] = torch.zeros_like(self.master[n]) if g is None else g.float()
+            prm.grad = None
+        return grads
+
+    def _backprop(self, per_image, stage: str, stage_times, device,
+                  is_loss: Callable[[str], bool] = lambda key: True):
+        """Per-image loss thunks (each → a dict of scalars) → each image's
+        total over the ``is_loss`` keys backpropagated as it comes, scaled
+        by 1/B, which sums to the gradient of the per-loss means over the
+        batch (the JAX step's vmap then mean) → (the means plus ``loss``,
+        their total; {name: float32 gradient}).  The backward's wall time
+        is added to ``stage``."""
+        self._zero_grads()
+        B = len(per_image)
+        sums: Dict[str, torch.Tensor] = {}
+        for losses in per_image:
+            out = losses()
+            with _stage(stage_times, stage, device):
+                (sum(v for k, v in out.items() if is_loss(k)) / B).backward()
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + v.detach().float() / B
+        sums["loss"] = sum(v for k, v in sums.items() if is_loss(k))
+        return sums, self._take_grads()
+
+    def _update(self, optimizer: AdamW, grads, opt_state, stage_times, device) -> torch.Tensor:
+        """One optimizer step on the masters, written into the modules →
+        the gradients' global norm."""
+        with _stage(stage_times, "optimizer", device):
+            norm = optimizer.step(self.master, grads, opt_state)
+            self._sync_modules()
+        return norm
+
+
+class _GroupTrainer(MasterTrainer):
+    """The training step of a detector: its trainable parameter groups
+    (``pipeline.param_groups()``), per-image losses (:meth:`loss_single`)
+    backpropagated as they come, then one optimizer update."""
+
+    GROUPS: Tuple[str, ...] = ()
+    BACKWARD_STAGE = "head"     # the stage the backward's time is added to
+
+    def __init__(self, pipeline, trainable: Sequence[str]):
+        unknown = set(trainable) - set(self.GROUPS)
+        if unknown:
+            raise ValueError(f"cannot train {sorted(unknown)}: trainable groups are "
+                             f"{self.GROUPS}")
+        self.pipeline = pipeline
+        self.trainable = tuple(trainable)
+        groups = pipeline.param_groups()
+        self._init_masters({f"{g}.{n}": p for g in self.trainable for n, p in groups[g].items()})
+
+    def jax_paths(self) -> Dict[str, str]:
+        """{trainable parameter: its JAX leaf path} (for ``paramwise_cfg``);
+        a group that is one tensor is its own path."""
+        out = {}
+        for g in self.trainable:
+            module = getattr(self.pipeline, g)
+            if not isinstance(module, torch.nn.Module):
+                out[f"{g}.{g}"] = g
+                continue
+            out.update({f"{g}.{n}": path for n, path in
+                        jax_paths(module, g, scan_prefixes(module, g)).items()})
+        return out
+
+    @staticmethod
+    def is_loss(key: str) -> bool:
+        """Whether a key of :meth:`loss_single`'s dict enters the total."""
+        return True
+
+    def gradients(self, batch, stage_times: Optional[Dict[str, float]] = None):
+        """Loss means over the batch and their total's gradient → (loss dict
+        of float32 scalars plus ``loss``, the total; {name: float32
+        gradient})."""
+        return self._backprop(
+            [lambda i=i: self.loss_single(type(batch)(*(t[i] for t in batch)), stage_times)
+             for i in range(batch.image.shape[0])],
+            self.BACKWARD_STAGE, stage_times, self.pipeline.device, self.is_loss)
+
+    def train_step(self, batch, optimizer: AdamW, opt_state: Dict[str, Any],
+                   stage_times: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``batch`` → the loss dict plus ``loss``
+        (the total) and ``grad_norm``.  ``stage_times``: wall ms per stage
+        (:meth:`loss_single`'s, and ``optimizer``), the card synchronized
+        around each."""
+        loss_dict, grads = self.gradients(batch, stage_times)
+        loss_dict["grad_norm"] = self._update(optimizer, grads, opt_state, stage_times,
+                                              self.pipeline.device)
+        return loss_dict
+
+
+class V4Trainer(_GroupTrainer):
+    """The training step of a :class:`~openpsg_tpu_torch.models.detectors.psg_v4.PSGv4`.
+
+    ``trainable``: the groups to optimize, of :data:`TRAINABLE_GROUPS`;
+    the reference freezes the segmenter and the LLM, so ``("head",)``; add
+    ``"llm"`` to fine-tune the language model too (the scratch recipe).
+    The frozen segmenter runs without autograd.  :attr:`master` holds the
+    float32 values the optimizer updates.  Stages: ``segmenter``,
+    ``head``, ``llm_fwd_bwd`` (the LLM forward and the whole backward) and
+    ``optimizer``."""
+
+    GROUPS = TRAINABLE_GROUPS
+    BACKWARD_STAGE = "llm_fwd_bwd"
+
+    def __init__(self, pipeline, trainable: Sequence[str] = ("head",),
+                 rel_cls_loss_weight: float = 50.0):
+        super().__init__(pipeline, trainable)
+        self.rel_cls_loss_weight = rel_cls_loss_weight
 
     # ------------------------------------------------------------ one image
     def loss_single(self, b: TrainBatch, stage_times: Optional[Dict[str, float]] = None
@@ -313,41 +440,111 @@ class V4Trainer:
         nll = -torch.gather(logp, -1, lab_ids.long()[..., None])[..., 0]
         return (nll * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
 
-    # ------------------------------------------------------------ the batch
-    def gradients(self, batch: TrainBatch, stage_times: Optional[Dict[str, float]] = None):
-        """Loss means over the batch and their total's gradient → (loss dict
-        of float32 scalars, {name: float32 gradient}).  Each image's losses
-        are backpropagated as they come, scaled by 1/B."""
-        for prm in self.params.values():
-            prm.grad = None
-        B = batch.image.shape[0]
-        sums: Dict[str, torch.Tensor] = {}
-        for i in range(B):
-            out = self.loss_single(TrainBatch(*(t[i] for t in batch)), stage_times)
-            with _stage(stage_times, "llm_fwd_bwd", self.pipeline.device):
-                (sum(out.values()) / B).backward()
-            for k, v in out.items():
-                sums[k] = sums.get(k, 0.0) + v.detach().float() / B
-        grads = {}
-        for n, prm in self.params.items():
-            g = prm.grad
-            grads[n] = torch.zeros_like(self.master[n]) if g is None else g.float()
-            prm.grad = None
-        loss_dict = dict(sums)
-        loss_dict["loss"] = sum(sums.values())
-        return loss_dict, grads
+# ------------------------------------------------------ the closed-set family
+class M2FTrainBatch(NamedTuple):
+    """Static-shape training examples of the closed-set family, batched on
+    axis 0."""
 
-    def train_step(self, batch: TrainBatch, optimizer: AdamW, opt_state: Dict[str, Any],
-                   stage_times: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch`` → the loss dict plus ``loss``
-        (their sum) and ``grad_norm``.  ``stage_times``: wall ms of
-        segmenter, head, llm_fwd_bwd (LLM forward and the whole backward)
-        and optimizer, the card synchronized around each."""
-        loss_dict, grads = self.gradients(batch, stage_times)
-        with _stage(stage_times, "optimizer", self.pipeline.device):
-            loss_dict["grad_norm"] = optimizer.step(self.master, grads, opt_state)
-            self._sync_modules()
-        return loss_dict
+    image: torch.Tensor            # [B, H, W, 3] float32 RGB 0-255, padded
+    object_masks: torch.Tensor     # [B, M, H4, W4] bool, stride 4
+    object_labels: torch.Tensor    # [B, M] int32 class ids
+    object_valid: torch.Tensor     # [B, M] bool
+    relation_target: torch.Tensor  # [B, M, M, R] float32 {0, 1}
+
+    @staticmethod
+    def from_numpy(arrays: Dict[str, np.ndarray], device) -> "M2FTrainBatch":
+        return M2FTrainBatch(**{k: torch.as_tensor(np.asarray(arrays[k]), device=device)
+                                for k in M2FTrainBatch._fields})
+
+
+class M2FTrainer(_GroupTrainer):
+    """The training step of the closed-set v1 / v2 / v3 family
+    (:class:`~openpsg_tpu_torch.models.detectors.mask2former_relation.PSGMask2FormerRelation`;
+    JAX ``train/trainer.py`` ``M2FTrainer``).
+
+    The reference recipe: the segmenter frozen (it runs without autograd),
+    the relation head and the object class embeddings trained
+    (:data:`~openpsg_tpu_torch.models.detectors.mask2former_relation.TRAINABLE_GROUPS`);
+    ground-truth masks pool the object tokens (``object_token_size``
+    chunks per object), and the dense [R, N, N] scores train against the
+    v1 loss family: head v1's own ``loss``, one multilabel CCE per v2
+    expert and for the gate, the same CCE for v3.  The total is the sum of
+    the ``loss_relation*`` keys.  Stages: ``segmenter``, ``head`` (tokens,
+    head, losses and the backward) and ``optimizer``."""
+
+    GROUPS = m2f.TRAINABLE_GROUPS
+
+    def __init__(self, pipeline, trainable: Sequence[str] = m2f.TRAINABLE_GROUPS):
+        super().__init__(pipeline, trainable)
+
+    @staticmethod
+    def is_loss(key: str) -> bool:
+        return key.startswith("loss_relation")
+
+    def loss_single(self, b: M2FTrainBatch, stage_times: Optional[Dict[str, float]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Losses (and ``relation.recall@20``) of ONE image (``b``'s fields
+        without the batch axis)."""
+        p = self.pipeline
+        c = p.cfg
+        dev = p.device
+        with _stage(stage_times, "segmenter", dev):
+            mf = p.segment(b.image)["mask_features"]
+
+        with _stage(stage_times, "head", dev):
+            labels = b.object_labels.long()
+            tokens = p.object_tokens(mf, b.object_masks, labels, chunked=True)
+            S = c.object_token_size
+            obj_valid, rel_target = b.object_valid, b.relation_target
+            if S > 1:
+                # tokens are object-major [M·S]; the targets stay object
+                # indices, the top-left [M, M] block of the [M·S, M·S] grid
+                M = obj_valid.shape[0]
+                obj_valid = obj_valid.repeat_interleave(S)
+                grid = rel_target.new_zeros((M * S, M * S) + rel_target.shape[2:])
+                grid[:M, :M] = rel_target
+                rel_target = grid
+            extra = p._zero_extra(c.max_objects_padded)
+            if p.pair_text_matrix is not None:
+                extra["pair_text"] = p.pair_text_matrix[labels[:, None], labels[None, :]][None]
+            if p.triplet_lookup is not None:
+                idx = p.triplet_lookup[labels[:, None], labels[None, :]]       # [M, M, R]
+                extra["triplet_text"] = p.triplet_table[idx][None]             # [1, M, M, R, T]
+            target = rel_target.permute(2, 0, 1)                             # [R, M·S, M·S]
+            pair = obj_valid[:, None] & obj_valid[None, :]
+
+            def mcce(scores):   # the v1 loss family on one [R, N, N] map
+                masked = torch.where(pair[None], scores,
+                                     torch.full_like(scores, losses.NEG_INF))
+                R = scores.shape[0]
+                per = losses.multilabel_categorical_crossentropy(target.reshape(R, -1),
+                                                                 masked.reshape(R, -1))
+                w = per / (per.max() + 1e-12)
+                return (per * w).mean() * 50.0, masked
+
+            if c.head_version == "v1":
+                scores = p._head_apply(tokens, obj_valid, extra)
+                return p.head.loss(scores[None], target[None], obj_valid[None])
+            if c.head_version == "v2":
+                cast = lambda t: None if t is None else t.to(p.head_dtype)
+                maps = p.head(tokens.to(p.head_dtype)[None], obj_valid[None],
+                              pair_text_embeds=cast(extra.get("pair_text")),
+                              triplet_text_embeds=cast(extra.get("triplet_text")))
+                out = {f"loss_relation_{name}": mcce(m[0])[0] for name, m in maps.items()}
+                _, masked = mcce(RelationHeadV2.primary(maps)[0])
+            else:
+                loss, masked = mcce(p._head_apply(tokens, obj_valid, extra))
+                out = {"loss_relation": loss}
+            out["relation.recall@20"] = losses.recall_at_k(masked[None], target[None], k=20)
+            return out
+
+
+def m2f_host_batch(examples) -> Dict[str, np.ndarray]:
+    """Dataset examples (``PSGDataset.load_example`` dicts) → the numpy
+    arrays of an :class:`M2FTrainBatch`."""
+    arrays = {k: np.stack([e[k] for e in examples]) for k in M2FTrainBatch._fields}
+    arrays["object_labels"] = arrays["object_labels"].astype(np.int32)
+    return arrays
 
 
 # ------------------------------------------------------------- host sampling
@@ -418,9 +615,7 @@ def host_batch(examples, tokenizer, relation_names, rng: np.random.Generator,
     """Dataset examples (``PSGDataset.load_example`` dicts) → the numpy
     arrays of a :class:`TrainBatch`, pairs sampled per example in order
     (3 negatives per positive, as the JAX train tool samples them)."""
-    arrays = {k: np.stack([e[k] for e in examples]) for k in
-              ("image", "object_masks", "object_labels", "object_valid", "relation_target")}
-    arrays["object_labels"] = arrays["object_labels"].astype(np.int32)
+    arrays = m2f_host_batch(examples)
     cols = {k: [] for k in ("qf_sel_idx", "qf_sel_weight", "llm_sel_idx", "llm_valid",
                             "llm_label_ids", "llm_label_mask")}
     for e in examples:

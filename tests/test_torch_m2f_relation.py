@@ -305,9 +305,16 @@ def test_builder_loads_a_segmenter_checkpoint(tmp_path):
                                   state["panoptic_head.query_feat.weight"])
 
 
-def test_train_tool_refuses_the_family(tmp_path):
+def test_train_tool_refuses_the_family(setup, tmp_path):
+    """The train tool no longer refuses the family: it trains the tiny
+    config one step (its family branch is held to the JAX package in
+    tests/test_torch_m2f_train_tool.py)."""
     from openpsg_tpu_torch.tools import train
 
-    with pytest.raises(SystemExit, match="closed-set"):
-        train.main([os.path.join(PORT_CFGS, "tiny_r50.py"), "--work-dir", str(tmp_path),
-                    "--device", "cpu"])
+    cfg = tmp_path / "cfg.py"
+    split = f"dict(ann_file={setup['ann']!r}, img_prefix={setup['root']!r}, " \
+            f"seg_prefix={setup['root']!r})"
+    cfg.write_text(f"_base_ = ['{PORT_CFGS}/tiny_r50.py']\ndata = dict(train={split})\n")
+    stats = train.main([str(cfg), "--work-dir", str(tmp_path / "wd"), "--device", "cpu",
+                        "--max-steps", "1"])
+    assert stats["steps"] == 1 and stats["saved_steps"] == [1]

@@ -115,7 +115,31 @@ Phases, each fatal on failure:
      and peak memory; (d) ``tools.selfcheck_e2e`` at its defaults: strict
      R@20 > 0, the objects fusion keeps, decode trips, the shared-KV
      kernel's launches, and the kernel against its plain version on the
-     trained model's learned pair masks.
+     trained model's learned pair masks;
+ 12. serving, prediction and the open-set check: (a) ``tools.serve`` at
+     full width with phase 7's int8 deployment settings (one model handed
+     to ``make_server``, ``--single-bucket --batch-size 4 --micro-batch
+     --max-wait-ms 200``, warmed up): 8 of phase 7's PNGs posted at once
+     from 8 threads over a real socket, then 2 identical posts, then
+     ``/healthz``: every status 200, each record well formed (its PNG at
+     the image's size, every segment id painted, relations 1-indexed), the
+     identical posts' records identical, 2 hopper launches of the shared-KV
+     kernel per image the model computed (pad copies included, counted
+     around exactly those requests), no gather launch; requests/s, p50 and
+     max latency, peak memory; then one ``service.submit`` at trip budget 2
+     (at most 2 decode trips) and one at None; (b) phase 11d's trained
+     model, started as a user starts the server (its config and
+     checkpoint): its 3 held-out images served with records equal to 11d's
+     infer-tool submission, then ``tools.predict`` on them (records and PNGs
+     equal to the submission's) and ``tools.parse_predict`` (one named
+     triplet per relation, no empty mask), then ``tools.predict
+     --checkpoint`` refusing the {head, llm} checkpoint as the JAX tool
+     does (F8); (c) ``tools.pvsg.infer_video`` at batch 4 on two 6-frame
+     videos written from those images: each frame's record equal to
+     ``infer`` on it; the frame extractor on a short video where
+     ``cv2.VideoWriter`` can write one; (d) ``tools.selfcheck_openset`` at
+     its defaults: the JAX tool's exit rule, the easy tier's R@10 above
+     chance, its median rank below half the hard tier's, no kernel launch.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -562,11 +586,22 @@ def main() -> int:
     # ---- 10. the closed-set v1-v3 family
     phase_family(torch, skv, gat)
 
-    # ---- 11. the family's training, segmenter training, the selfcheck
-    phase_training_family(torch, skv, gat)
+    # ---- 11. the family's training, segmenter training, the selfcheck;
+    # ---- 12. serving, predict, PVSG frames and the open-set selfcheck
+    import shutil
+    import tempfile
+
+    selfcheck_root = tempfile.mkdtemp(prefix="chip_smoke_selfcheck_")
+    try:
+        learned = phase_training_family(torch, skv, gat, selfcheck_root)
+        phase_serving(torch, skv, gat, learned)
+    finally:
+        shutil.rmtree(selfcheck_root, ignore_errors=True)
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
+        for path in ("serve", "serve_learned", "predict", "pvsg", "openset"):
+            assert path in k["launches_by_path"], (k["name"], path)
         k["launches"] = sum(k["launches_by_path"].values())
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
@@ -2222,104 +2257,100 @@ def phase_segmenter_train(torch, root, ann):
     del model, seg, tr, state, opt, batch
 
 
-def phase_selfcheck(torch, skv, gat):
+def phase_selfcheck(torch, skv, gat, root):
     """Phase 11d: ``tools.selfcheck_e2e`` on the card at its defaults (900
-    segmenter steps, 400 head and LLM steps, the 6-image 64² fixture):
+    segmenter steps, 400 head and LLM steps, the 6-image 64² fixture, all in
+    ``root``, which phase 12 serves from afterwards):
     strict R@20 > 0; mR@20 and the ground-truth-mask upper bound; per
     held-out image the objects fusion kept, the decode trips and the pair
     mask's density; the shared-KV kernel's launches by variant.  Then, on
     one held-out image, the trained model's Q-Former with the kernel
     against the plain attention forced (:func:`compare_head`,
     TOL_HEAD_F32): the first learned, sparse pair masks the kernel sees on
-    an inference path."""
-    import shutil
-    import tempfile
-
+    an inference path.  → the selfcheck's result (:func:`selfcheck_e2e.run`)."""
     import numpy as np
 
     from openpsg_tpu_torch.data.preprocess import Preprocessor, load_image_rgb
     from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
     from openpsg_tpu_torch.tools import selfcheck_e2e
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_selfcheck_")
-    try:
-        fca.reset_launches()
-        mg.sparse_row_gather.launches = 0
-        t0 = time.perf_counter()
-        res = selfcheck_e2e.run(root, device="cuda", log=lambda *a: None)
-        wall = time.perf_counter() - t0
-        by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
-        skv["launches_by_path"]["selfcheck"] = fca.flash_shared_kv_cross_attn.launches
-        skv["launches_by_variant"]["selfcheck"] = by_variant
-        gat["launches_by_path"]["selfcheck"] = mg.sparse_row_gather.launches
-        s, g = res["scores"], res["gt_scores"]
-        log(f"[selfcheck] tools.selfcheck_e2e on the card (900 + 400 steps): strict R@20 "
-            f"{s['R@20']:.1f}, mR@20 {s['mR@20']:.1f}; ground-truth-mask upper bound R@20 "
-            f"{g['R@20']:.1f}, mR@20 {g['mR@20']:.1f}; phases (s) "
-            + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
-            + f"; in all {wall:.1f} s; segmenter losses {json.dumps(res['seg_losses'][-1])}; "
-            f"relation losses {json.dumps(res['rel_losses'][-1])}; shared-KV launches "
-            f"{by_variant}, sparse_row_gather {mg.sparse_row_gather.launches}")
-        if not s["R@20"] > 0:
-            raise AssertionError("selfcheck: strict R@20 is 0 on the card")
+    fca.reset_launches()
+    mg.sparse_row_gather.launches = 0
+    t0 = time.perf_counter()
+    res = selfcheck_e2e.run(root, device="cuda", log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+    skv["launches_by_path"]["selfcheck"] = fca.flash_shared_kv_cross_attn.launches
+    skv["launches_by_variant"]["selfcheck"] = by_variant
+    gat["launches_by_path"]["selfcheck"] = mg.sparse_row_gather.launches
+    s, g = res["scores"], res["gt_scores"]
+    log(f"[selfcheck] tools.selfcheck_e2e on the card (900 + 400 steps): strict R@20 "
+        f"{s['R@20']:.1f}, mR@20 {s['mR@20']:.1f}; ground-truth-mask upper bound R@20 "
+        f"{g['R@20']:.1f}, mR@20 {g['mR@20']:.1f}; phases (s) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
+        + f"; in all {wall:.1f} s; segmenter losses {json.dumps(res['seg_losses'][-1])}; "
+        f"relation losses {json.dumps(res['rel_losses'][-1])}; shared-KV launches "
+        f"{by_variant}, sparse_row_gather {mg.sparse_row_gather.launches}")
+    if not s["R@20"] > 0:
+        raise AssertionError("selfcheck: strict R@20 is 0 on the card")
 
-        model = res["pipeline"]
-        with open(res["ann"], encoding="utf-8") as f:
-            data = json.load(f)
-        held_out = [d for d in data["data"] if d["image_id"] in set(data["test_image_ids"])]
-        H, _ = model._model_hw()
-        pre = Preprocessor(scale=(H, H))
-        per, first = [], None
-        for d in held_out:
-            ex = pre(load_image_rgb(os.path.join(root, d["file_name"])))
-            r = model.infer(ex["image"].astype(np.float32), ex["img_shape"])
-            img = torch.as_tensor(ex["image"].astype(np.float32), device="cuda")
-            seg = model.segment(img)
-            sel = model.fuse_select(seg, ex["img_shape"])
-            _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *sel))
-            mask = calls[0][3]
-            per.append(dict(objects=len(r["rel_results"]["object_id_list"]),
-                            decode_trips=int(r["decode_steps"]),
-                            pair_mask_density=float(mask.float().mean())))
-            if first is None:
-                first = (seg["mask_features"], sel)
-        log(f"[selfcheck] held-out images (learned weights): " + "; ".join(
-            f"image {i}: {p['objects']} objects kept, {p['decode_trips']} decode trips "
-            f"(of {model.cfg.max_new_tokens}), pair mask density {p['pair_mask_density']:.3f}"
-            for i, p in enumerate(per)))
-        mf, sel = first
-        M = model.cfg.head.max_objects_padded
-        valid = sel[1]
-        pair = torch.arange(M * M, device=valid.device)
-        pair_valid = valid[pair // M] & valid[pair % M]
+    model = res["pipeline"]
+    with open(res["ann"], encoding="utf-8") as f:
+        data = json.load(f)
+    held_out = [d for d in data["data"] if d["image_id"] in set(data["test_image_ids"])]
+    H, _ = model._model_hw()
+    pre = Preprocessor(scale=(H, H))
+    per, first = [], None
+    for d in held_out:
+        ex = pre(load_image_rgb(os.path.join(root, d["file_name"])))
+        r = model.infer(ex["image"].astype(np.float32), ex["img_shape"])
+        img = torch.as_tensor(ex["image"].astype(np.float32), device="cuda")
+        seg = model.segment(img)
+        sel = model.fuse_select(seg, ex["img_shape"])
+        _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *sel))
+        mask = calls[0][3]
+        per.append(dict(objects=len(r["rel_results"]["object_id_list"]),
+                        decode_trips=int(r["decode_steps"]),
+                        pair_mask_density=float(mask.float().mean())))
+        if first is None:
+            first = (seg["mask_features"], sel)
+    log(f"[selfcheck] held-out images (learned weights): " + "; ".join(
+        f"image {i}: {p['objects']} objects kept, {p['decode_trips']} decode trips "
+        f"(of {model.cfg.max_new_tokens}), pair mask density {p['pair_mask_density']:.3f}"
+        for i, p in enumerate(per)))
+    mf, sel = first
+    M = model.cfg.head.max_objects_padded
+    valid = sel[1]
+    pair = torch.arange(M * M, device=valid.device)
+    pair_valid = valid[pair // M] & valid[pair % M]
 
-        def run(plain):
-            heads = {}
-            hook = model.head.register_forward_hook(lambda mod, inp, o: heads.update(o))
-            try:
-                (o, _, _), calls = kernel_calls(
-                    lambda: model.tail_pre(mf, *sel, plain_attention=plain))
-            finally:
-                hook.remove()
-            want = 0 if plain else model.cfg.head.qformer.num_layers
-            if len(calls) != want:
-                raise AssertionError(f"{len(calls)} kernel calls, expected {want}")
-            return o, heads
+    def run(plain):
+        heads = {}
+        hook = model.head.register_forward_hook(lambda mod, inp, o: heads.update(o))
+        try:
+            (o, _, _), calls = kernel_calls(
+                lambda: model.tail_pre(mf, *sel, plain_attention=plain))
+        finally:
+            hook.remove()
+        want = 0 if plain else model.cfg.head.qformer.num_layers
+        if len(calls) != want:
+            raise AssertionError(f"{len(calls)} kernel calls, expected {want}")
+        return o, heads
 
-        compare_head(torch, "selfcheck (learned masks, f32)", TOL_HEAD_F32, M, pair_valid,
-                     run(False), run(True))
-        log("[selfcheck] stats " + json.dumps(dict(
-            scores=s, gt_scores=g, seconds=res["seconds"], per_image=per,
-            launches_by_variant=by_variant, seg_losses=res["seg_losses"],
-            rel_losses=res["rel_losses"])))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    compare_head(torch, "selfcheck (learned masks, f32)", TOL_HEAD_F32, M, pair_valid,
+                 run(False), run(True))
+    log("[selfcheck] stats " + json.dumps(dict(
+        scores=s, gt_scores=g, seconds=res["seconds"], per_image=per,
+        launches_by_variant=by_variant, seg_losses=res["seg_losses"],
+        rel_losses=res["rel_losses"])))
+    return res
 
 
-def phase_training_family(torch, skv, gat):
+def phase_training_family(torch, skv, gat, selfcheck_root):
     """Phase 11: the closed-set family's training and segmenter training
     (:func:`phase_family_train_tiny`, :func:`phase_family_train`,
-    :func:`phase_segmenter_train`, :func:`phase_selfcheck`)."""
+    :func:`phase_segmenter_train`, :func:`phase_selfcheck` in
+    ``selfcheck_root``) → the selfcheck's result."""
     import shutil
     import tempfile
 
@@ -2334,9 +2365,494 @@ def phase_training_family(torch, skv, gat):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    phase_selfcheck(torch, skv, gat)
+    res = phase_selfcheck(torch, skv, gat, selfcheck_root)
     torch.cuda.empty_cache()
     log(f"[family-train] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------------ phase 12
+SERVE_ARGS = ["--port", "0", "--single-bucket", "--batch-size", "4", "--micro-batch",
+              "--max-wait-ms", "200"]
+TOL_SERVE = 1e-5   # a relation score of the same float32 model on the same
+                   # image, through two entry points (the same kernels)
+
+
+@contextlib.contextmanager
+def computed_images(model):
+    """Record the image count of every ``infer_microbatch`` call of a PSG v4
+    ``model``, pad copies included: ``infer`` and ``infer_batch`` run
+    through it too, so the list covers every image the model computed."""
+    sizes, real = [], model.infer_microbatch
+
+    def wrapped(images, *a, **kw):
+        sizes.append(len(images))
+        return real(images, *a, **kw)
+
+    model.infer_microbatch = wrapped
+    try:
+        yield sizes
+    finally:
+        del model.infer_microbatch
+
+
+@contextlib.contextmanager
+def served(argv, model=None):
+    """``tools.serve.make_server`` on ``argv`` (port 0), serving from a
+    thread → (address, service); shut down and joined on exit."""
+    import threading
+
+    from openpsg_tpu_torch.tools import serve
+
+    httpd, service = serve.make_server(serve.parse_args(argv), model=model)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield httpd.server_address[:2], service
+    finally:
+        httpd.shutdown()
+        service.stop()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
+def http_request(addr, method, path, body=None):
+    """One request over a real socket → (status, decoded JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=900)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def post_concurrently(addr, bodies):
+    """POST every body to /infer from its own thread, all started together
+    → ([(status, record)], wall seconds)."""
+    import threading
+
+    out = [(None, "no answer")] * len(bodies)
+
+    def hit(i):
+        try:
+            out[i] = http_request(addr, "POST", "/infer", bodies[i])
+        except Exception as e:   # reported as a failed request below
+            out[i] = (None, repr(e))
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return out, time.perf_counter() - t0
+
+
+def segment_map(ids, segments_info):
+    """[h, w] rgb2id map → each pixel's index in ``segments_info`` (-1 where
+    none): the partition, whatever colours painted it."""
+    import numpy as np
+
+    out = np.full(ids.shape, -1, np.int64)
+    for k, seg in enumerate(segments_info):
+        out[ids == seg["id"]] = k
+    return out
+
+
+def check_served_record(tag, rec, hw):
+    """A served record is well formed: its PNG at the image's original size,
+    every ``segments_info`` id painted in it, relations 1-indexed over its
+    segments → the PNG's id map."""
+    import base64
+
+    import numpy as np
+
+    from openpsg_tpu_torch.utils.image_io import decode_png
+    from openpsg_tpu_torch.utils.panoptic import rgb2id
+
+    ids = rgb2id(decode_png(base64.b64decode(rec["pan_seg_png"])))
+    present = set(np.unique(ids).tolist())
+    n = len(rec["segments_info"])
+    bad = [s["id"] for s in rec["segments_info"] if s["id"] not in present]
+    if ids.shape != tuple(hw) or bad or len(rec["object_id_list"]) != n:
+        raise AssertionError(f"{tag}: PNG {ids.shape} vs image {hw}, segment ids not painted "
+                             f"{bad}, {n} segments for {len(rec['object_id_list'])} objects")
+    for s, o, r in rec["relations"]:
+        if not (0 <= s < n and 0 <= o < n and 1 <= r <= 56):
+            raise AssertionError(f"{tag}: relation {(s, o, r)} over {n} segments")
+    if len(rec["relation_scores"]) != len(rec["relations"]):
+        raise AssertionError(f"{tag}: {len(rec['relation_scores'])} scores for "
+                             f"{len(rec['relations'])} relations")
+    return ids
+
+
+def read_path_launches(fca, mg, skv, gat, key):
+    """Store the launches since the last reset under ``key`` → (shared-KV
+    launches, by variant, gather launches)."""
+    skv["launches_by_path"][key] = fca.flash_shared_kv_cross_attn.launches
+    skv["launches_by_variant"][key] = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+    gat["launches_by_path"][key] = mg.sparse_row_gather.launches
+    return (skv["launches_by_path"][key], skv["launches_by_variant"][key],
+            gat["launches_by_path"][key])
+
+
+def phase_serve_full(torch, skv, gat):
+    """Phase 12a: ``tools.serve`` at full width with the int8 deployment
+    settings (phase 7's config), one model handed to ``make_server`` (port
+    0, ``--single-bucket --batch-size 4 --micro-batch --max-wait-ms 200``),
+    warmed up; then 8 of phase 7's PNGs posted at once from 8 threads, 2
+    identical posts at once, ``/healthz``; launch counts and the images the
+    model computed (pads included) read around exactly those requests;
+    then one ``service.submit`` at trip budget 2 and one at None."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.data.preprocess import load_image_rgb
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        write_png_fixture(root, TOOL_SIZES)
+        cfg = os.path.join(root, "deploy.py")
+        with open(cfg, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                    + TOOL_INT8)
+        n_req = 8
+        paths = [os.path.join(root, f"{i}.png") for i in range(n_req)]
+        bodies = []
+        for p in paths:
+            with open(p, "rb") as f:
+                bodies.append(f.read())
+        model = build_detector_from_config(Config.fromfile(cfg), seed=0)
+        with served(["--config", cfg] + SERVE_ARGS, model) as (addr, service):
+            t0 = time.perf_counter()
+            service.warmup()
+            warm = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with computed_images(model) as sizes:
+                fca.reset_launches()
+                mg.sparse_row_gather.launches = 0
+                burst, t_burst = post_concurrently(addr, bodies)
+                same, t_same = post_concurrently(addr, [bodies[0]] * 2)
+                health = http_request(addr, "GET", "/healthz")
+                launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "serve")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            for i, (status, rec) in enumerate(burst + same):
+                if status != 200:
+                    raise AssertionError(f"serve request {i}: status {status}: {rec}")
+            if health[0] != 200 or health[1].get("status") != "ok":
+                raise AssertionError(f"/healthz answered {health}")
+            for i, (_, rec) in enumerate(burst):
+                check_served_record(f"serve request {i}", rec, TOOL_SIZES[i])
+            a, b = (dict(r) for _, r in same)
+            lat = [r["latency_ms"] for _, r in burst + same]
+            a.pop("latency_ms"), b.pop("latency_ms")
+            if a != b:
+                raise AssertionError("the two identical posts gave different records")
+            check_served_record("identical post", a, TOOL_SIZES[0])
+            n = sum(sizes)
+            check_variants(by_variant, n)
+            if gathers:
+                raise AssertionError(f"sparse_row_gather launched {gathers} times while serving")
+            log(f"[serve] full width, int8 deployment settings, batch 4 micro-batch: warm-up "
+                f"{warm:.1f} s; 8 concurrent requests in {t_burst:.2f} s ({n_req / t_burst:.3f} "
+                f"requests/s), then 2 identical in {t_same:.2f} s; latency_ms p50 "
+                f"{statistics.median(lat):.1f}, max {max(lat):.1f}; groups computed {sizes} "
+                f"({n} images, {n - n_req - 2} pad copies); flash_shared_kv_cross_attn launches "
+                f"{by_variant}, 2 per computed image; sparse_row_gather 0; peak memory "
+                f"{peak:.2f} GiB; /healthz {json.dumps(health[1])}")
+            rgb = load_image_rgb(paths[0])
+            service.trip_budget = 2
+            capped, _ = service.submit(rgb)
+            service.trip_budget = None
+            free, _ = service.submit(rgb)
+            if capped["decode_steps"] > 2:
+                raise AssertionError(f"trip budget 2 decoded {capped['decode_steps']} trips")
+            log(f"[serve] service.submit at trip budget 2: {capped['decode_steps']} decode "
+                f"trips; at None on the same service: {free['decode_steps']} (of "
+                f"{model.cfg.max_new_tokens})")
+        log("[serve] stats " + json.dumps(dict(
+            requests_per_s=n_req / t_burst, burst_seconds=t_burst, same_seconds=t_same,
+            latency_ms=lat, groups=sizes, computed_images=n, launches=launches,
+            peak_gib=peak, warmup_seconds=warm, capped_trips=capped["decode_steps"],
+            free_trips=free["decode_steps"])))
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_serve_learned(torch, skv, gat, learned):
+    """Phase 12b: the selfcheck's trained tiny model (phase 11d's files),
+    started as a user starts the server (``--config`` and ``--checkpoint``;
+    the server builds and restores it on the card): its 3 held-out images
+    posted, each record equal to phase 11d's infer-tool submission (the
+    relations, the segments' categories and pixels); then ``tools.predict``
+    on the same images with the served model (records, PNGs and relations
+    equal to the submission's) and ``tools.parse_predict`` on its output;
+    then ``tools.predict --checkpoint`` on the selfcheck's {head, llm}
+    checkpoint, which it refuses (F8) → the served model."""
+    import numpy as np
+
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import parse_predict, predict
+    from openpsg_tpu_torch.utils.image_io import read_png
+    from openpsg_tpu_torch.utils.panoptic import rgb2id
+
+    root = os.path.dirname(learned["ann"])
+    cfg, ckpt = os.path.join(root, "selfcheck_cfg.py"), os.path.join(root, "ckpts")
+    sub_dir = os.path.join(root, "out", "submission")
+    with open(os.path.join(sub_dir, "relation.json"), encoding="utf-8") as f:
+        submission = json.load(f)
+    with open(learned["ann"], encoding="utf-8") as f:
+        data = json.load(f)
+    held = [d for d in data["data"] if d["image_id"] in set(data["test_image_ids"])]
+    sub_maps = [segment_map(rgb2id(read_png(os.path.join(sub_dir, "panseg",
+                                                         r["pan_seg_file_name"]))),
+                            r["segments_info"]) for r in submission]
+
+    def same_as_submission(tag, rec, i, ids):
+        sub = submission[i]
+        cats = lambda r: [s["category_id"] for s in r["segments_info"]]
+        if rec["relations"] != sub["relations"] or cats(rec) != cats(sub):
+            raise AssertionError(f"{tag} image {i}: relations {rec['relations']} / categories "
+                                 f"{cats(rec)} vs the submission's {sub['relations']} / "
+                                 f"{cats(sub)}")
+        if not np.array_equal(segment_map(ids, rec["segments_info"]), sub_maps[i]):
+            raise AssertionError(f"{tag} image {i}: segments differ from the submission's")
+
+    argv = ["--config", cfg, "--checkpoint", ckpt, "--port", "0", "--img-scale", "64", "64"]
+    with served(argv) as (addr, service):
+        model = service.model
+        with computed_images(model) as sizes:
+            fca.reset_launches()
+            mg.sparse_row_gather.launches = 0
+            recs = []
+            for d in held:
+                with open(os.path.join(root, d["file_name"]), "rb") as f:
+                    recs.append(http_request(addr, "POST", "/infer", f.read()))
+            launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat,
+                                                               "serve_learned")
+    for i, ((status, rec), d) in enumerate(zip(recs, held)):
+        if status != 200:
+            raise AssertionError(f"learned serve image {i}: status {status}: {rec}")
+        ids = check_served_record(f"learned serve image {i}", rec, (d["height"], d["width"]))
+        if i == 0 and not np.array_equal(ids, rgb2id(read_png(os.path.join(
+                sub_dir, "panseg", submission[0]["pan_seg_file_name"])))):
+            raise AssertionError("served image 0: PNG ids differ from the submission's")
+        same_as_submission("served", rec, i, ids)
+    n = sum(sizes)
+    if launches != 2 * n or gathers:
+        raise AssertionError(f"learned serve: {launches} shared-KV launches for {n} images, "
+                             f"{gathers} gather launches")
+    log(f"[serve] learned weights (selfcheck model built and restored by the server): 3 "
+        f"held-out images, records equal to phase 11d's submission: relations per image "
+        f"{[len(r['relations']) for _, r in recs]}, "
+        f"{[len(r['segments_info']) for _, r in recs]} segments; latency_ms "
+        f"{[r['latency_ms'] for _, r in recs]}; shared-KV launches {by_variant}")
+
+    held_json = os.path.join(root, "held_out.json")
+    with open(held_json, "w", encoding="utf-8") as f:
+        json.dump(held, f)
+    pred_dir = os.path.join(root, "predict")
+    common = ["--config", cfg, "--input-json", held_json, "--data-dir", root]
+    with computed_images(model) as sizes:
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        predict.main(common + ["--output-dir", pred_dir], model=model)
+        launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "predict")
+    n = sum(sizes)
+    if launches != 2 * n or gathers:
+        raise AssertionError(f"predict: {launches} shared-KV launches for {n} images, "
+                             f"{gathers} gather launches")
+    with open(os.path.join(pred_dir, "predictions.json"), encoding="utf-8") as f:
+        preds = json.load(f)
+    n_trip = 0
+    for i, rec in enumerate(preds):
+        ids = rgb2id(read_png(os.path.join(pred_dir, "panseg", rec["pan_seg_file_name"])))
+        sub_ids = rgb2id(read_png(os.path.join(sub_dir, "panseg",
+                                               submission[i]["pan_seg_file_name"])))
+        same_as_submission("predict", rec, i, ids)
+        if rec["segments_info"] != submission[i]["segments_info"] or \
+                not np.array_equal(ids, sub_ids):
+            raise AssertionError(f"predict image {i}: segment ids differ from the submission's")
+        triplets = parse_predict.parse_record(rec, os.path.join(pred_dir, "panseg"))
+        if len(triplets) != len(rec["relations"]) or not all(
+                t["sub_mask"].any() and t["obj_mask"].any() for t in triplets):
+            raise AssertionError(f"parse_predict image {i}: {len(triplets)} triplets for "
+                                 f"{len(rec['relations'])} relations, or an empty mask")
+        n_trip += len(triplets)
+    try:
+        predict.main(common + ["--output-dir", os.path.join(root, "predict_ckpt"),
+                               "--checkpoint", ckpt])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("predict --checkpoint restored a {head, llm} checkpoint; the "
+                             "JAX tool's head-only restore refuses it (F8)")
+    log(f"[serve] tools.predict with the served model: 3 records equal to the submission "
+        f"(relations, segments_info, PNG ids); parse_predict: {n_trip} named triplets, every "
+        f"mask non-empty; shared-KV launches {by_variant}. predict --checkpoint on the "
+        f"selfcheck's {{head, llm}} checkpoint restores nothing and refuses it, as the JAX "
+        f"tool's head-only orbax restore does (F8): {refusal}")
+    return model, held
+
+
+def phase_pvsg(torch, skv, gat, learned, model, held):
+    """Phase 12c: two 6-frame "videos" written as PNGs by the port's codec
+    from the selfcheck's held-out images (the second mirrored), through
+    ``tools.pvsg.infer_video`` at batch 4 (a chunk of 4, then 2 and 2 pad
+    copies): each frame's record equal to ``infer`` on that frame; then the
+    frame extractor on a short video where ``cv2.VideoWriter`` can write
+    one."""
+    import numpy as np
+
+    from openpsg_tpu_torch.data.preprocess import Preprocessor, load_image_rgb
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools.pvsg import extractor, infer_video
+    from openpsg_tpu_torch.utils.image_io import encode_png_rgb, write_png
+
+    root = os.path.dirname(learned["ann"])
+    frames_dir = os.path.join(root, "frames")
+    frames = []
+    for video, mirror in (("a", False), ("b", True)):
+        os.makedirs(os.path.join(frames_dir, video))
+        for k in range(6):
+            img = load_image_rgb(os.path.join(root, held[k % 3]["file_name"]))
+            path = os.path.join(frames_dir, video, f"{k:04d}.png")
+            write_png(path, encode_png_rgb(np.ascontiguousarray(img[:, ::-1] if mirror else img)))
+            frames.append((video, k, path))
+    out = os.path.join(root, "pvsg.json")
+    with computed_images(model) as sizes:
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        videos = infer_video.main(["--config", os.path.join(root, "selfcheck_cfg.py"),
+                                   "--frames-dir", frames_dir, "--output", out,
+                                   "--batch-size", "4"], model=model)
+        launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "pvsg")
+    n = sum(sizes)
+    if sizes != [1] * 16 or launches != 2 * n or gathers:
+        raise AssertionError(f"pvsg: computed {sizes}, {launches} shared-KV launches, "
+                             f"{gathers} gather launches")
+    H, _ = model._model_hw()
+    pre = Preprocessor(scale=(H, H))
+    n_rel = 0
+    for video, k, path in frames:
+        got = videos[video][k]
+        ex = pre(load_image_rgb(path))
+        want = model.infer(ex["image"].astype(np.float32), ex["img_shape"])
+        if (got["frame"] != f"{k:04d}.png"
+                or got["object_id_list"] != want["rel_results"]["object_id_list"]
+                or got["relations"] != want["rel_results"]["relation"]
+                or not np.allclose(got["relation_scores"], want["rel_scores"], rtol=0,
+                                   atol=TOL_SERVE)):
+            raise AssertionError(f"pvsg video {video} frame {k}: record differs from infer")
+        n_rel += len(got["relations"])
+    log(f"[pvsg] 2 videos x 6 frames at batch 4: 12 records equal to per-frame infer "
+        f"({n_rel} relations, 0-indexed as the JAX tool writes them); computed {n} images "
+        f"(4 pad copies); shared-KV launches {by_variant}")
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    writer, video_dir = None, os.path.join(root, "videos")
+    if cv2 is not None:
+        os.makedirs(video_dir)
+        writer = cv2.VideoWriter(os.path.join(video_dir, "clip.avi"),
+                                 cv2.VideoWriter_fourcc(*"MJPG"), 5, (64, 64))
+    if writer is None or not writer.isOpened():
+        log("[pvsg] frame extractor not run: cv2.VideoWriter cannot write a video here")
+        return
+    for k in range(5):
+        writer.write(load_image_rgb(os.path.join(root, held[k % 3]["file_name"]))[..., ::-1])
+    writer.release()
+    image_dir = os.path.join(root, "extracted")
+    count = extractor.extract(video_dir, image_dir, "avi")
+    names = sorted(os.listdir(os.path.join(image_dir, "clip")))
+    shapes = {load_image_rgb(os.path.join(image_dir, "clip", nm)).shape for nm in names}
+    if count != 5 or names != [f"{k:04d}.png" for k in range(5)] or shapes != {(64, 64, 3)}:
+        raise AssertionError(f"extractor: {count} frames, {names}, shapes {shapes}")
+    log("[pvsg] frame extractor: a 5-frame MJPG .avi written by cv2.VideoWriter gave 5 "
+        "64x64 PNG frames")
+
+
+def phase_openset(torch, skv, gat):
+    """Phase 12d: ``tools.selfcheck_openset`` at its defaults (400 steps) on
+    the card: the JAX tool's exit rule, the easy tier's R@10 above chance,
+    the easy median rank below half the hard one; no kernel launch (the v3
+    family)."""
+    import shutil
+    import tempfile
+
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import selfcheck_openset
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_openset_")
+    try:
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        t0 = time.perf_counter()
+        res = selfcheck_openset.run(root, device="cuda", log=lambda *a: None)
+        wall = time.perf_counter() - t0
+        launches, _, gathers = read_path_launches(fca, mg, skv, gat, "openset")
+        s = res["summary"]
+        easy, hard = s["easy_tier"], s["hard_tier"]
+        log(f"[openset] tools.selfcheck_openset on the card (400 steps): easy tier "
+            f"{easy['held_out_predicate']!r} ranks {easy['rank_per_image']} (median "
+            f"{easy['median_rank']}), zero-shot R@10 {easy['zero_shot_R@10']:.1f} R@20 "
+            f"{easy['zero_shot_R@20']:.1f} vs chance R@10 {res['chance10']:.1f}; hard tier "
+            f"{hard['held_out_predicate']!r} ranks {hard['rank_per_image']} (median "
+            f"{hard['median_rank']}, chance median {hard['chance_median_rank']}); closed-set "
+            f"R@10 {s['closed_set_R@10(looking at)']:.1f}; token overlap easy "
+            f"{easy['token_overlap']}, hard {hard['token_overlap']}; phases (s) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
+            + f"; in all {wall:.1f} s; last losses {json.dumps(res['losses'][-1])}; "
+            f"shared-KV launches {launches}, sparse_row_gather {gathers}")
+        if not res["ok"]:
+            raise AssertionError("open-set selfcheck: the JAX tool's exit rule failed")
+        if not (easy["zero_shot_R@10"] > res["chance10"]
+                and easy["median_rank"] < hard["median_rank"] / 2):
+            raise AssertionError("open-set selfcheck: easy tier not above chance, or the "
+                                 "tier contrast does not hold")
+        if launches or gathers:
+            raise AssertionError(f"open-set selfcheck launched {launches} shared-KV and "
+                                 f"{gathers} gather kernels (v3 family: expected none)")
+        log("[openset] stats " + json.dumps(dict(summary=s, seconds=res["seconds"],
+                                                 wall=wall, losses=res["losses"])))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_serving(torch, skv, gat, learned):
+    """Phase 12: serving, prediction, PVSG frames and the open-set selfcheck
+    (:func:`phase_serve_full`, :func:`phase_serve_learned` on phase 11d's
+    result ``learned``, :func:`phase_pvsg`, :func:`phase_openset`)."""
+    t_phase = time.perf_counter()
+    times = {}
+    t0 = time.perf_counter()
+    phase_serve_full(torch, skv, gat)
+    torch.cuda.empty_cache()
+    times["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, held = phase_serve_learned(torch, skv, gat, learned)
+    times["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_pvsg(torch, skv, gat, learned, model, held)
+    times["c"] = time.perf_counter() - t0
+    del model
+    t0 = time.perf_counter()
+    phase_openset(torch, skv, gat)
+    torch.cuda.empty_cache()
+    times["d"] = time.perf_counter() - t0
+    log(f"[serve] phase 12 in {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"12{k} {v:.1f} s" for k, v in times.items()) + ")")
 
 
 def compare_runs(torch, tag, a, b):

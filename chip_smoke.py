@@ -141,6 +141,26 @@ Phases, each fatal on failure:
      its defaults: the JAX tool's exit rule, the easy tier's R@10 above
      chance, its median rank below half the hard tier's, no kernel launch.
 
+  13. parallelism on the card (``parallel/``): (a) ``python -m
+     torch.distributed.run --standalone --nproc_per_node 1 -m
+     openpsg_tpu_torch.tools.train --launcher pytorch`` at full
+     ``baseline_v4_ov`` width with ``tpu.mesh=dict(dp=1, tp=1)`` (NCCL at
+     world size 1), 2 steps on phase 8b's fixture: its logged losses equal
+     8b's first two within TOL_TRAIN_LOSS; then the infer tool with
+     ``--batch-size 2 --single-bucket`` on the 4 val images: in this process
+     without a process group, under the launcher, and in this process as
+     rank 0 of an NCCL world of 1 (``infer_batch`` over a dp mesh, its
+     launches counted as path ``infer_batch_dp``): relation.json and every
+     PNG byte-equal; (b) ``make_pair_sharded_infer`` over that NCCL world:
+     results equal ``infer``, 2 hopper launches per image, and on 30 seeded
+     objects per image the gathered head outputs (logits, visual tokens,
+     top pairs, LLM prefix) equal the unsplit head's within TOL_F32; (c)
+     one dp=2 train step at full width as 2 gloo ranks sharing ``cuda:0``
+     (``parallel.launch.spawn``): the losses, the dp-averaged head
+     gradients and the updated head equal a single-process step at B=2
+     within TOL_TRAIN_LOSS, TOL_TRAIN_GRAD and TOL_TRAIN_UPDATE (the
+     largest gradient difference is printed too); peak memory per rank.
+
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX.
@@ -576,7 +596,7 @@ def main() -> int:
     phase_train_tiny(torch)
     for quant in ("weight_only", "act_int8"):
         phase_train_tiny(torch, quant)
-    phase_train(torch, skv, gat)
+    train_metrics = phase_train(torch, skv, gat)
     phase_train_int8(torch, skv)
     torch.cuda.empty_cache()
 
@@ -597,10 +617,15 @@ def main() -> int:
         phase_serving(torch, skv, gat, learned)
     finally:
         shutil.rmtree(selfcheck_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 13. parallelism on the card
+    phase_parallel(torch, skv, gat, train_metrics)
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
-        for path in ("serve", "serve_learned", "predict", "pvsg", "openset"):
+        for path in ("serve", "serve_learned", "predict", "pvsg", "openset", "infer_batch_tool",
+                     "infer_batch_dp", "pair_sharded"):
             assert path in k["launches_by_path"], (k["name"], path)
         k["launches"] = sum(k["launches_by_path"].values())
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1313,6 +1338,7 @@ def phase_train(torch, skv, gat):
             peak_memory_train_only_gib=s_stats["peak_memory_bytes"] / 2**30,
             split_ms=split, split_step_ms=s_med, checkpoint_bytes=sizes,
             metrics=stats["metrics"], val=stats["val"])))
+        return stats["metrics"]
     finally:
         V4Trainer.train_step = real_step
         os.chdir(cwd)
@@ -3048,6 +3074,290 @@ def compare_head(torch, tag, tol, M, pair_valid, kern, plain):
             f"relative to the largest entry {rel:.3e} (tol {tol:g})")
         if not rel <= tol:
             raise AssertionError(f"{tag}: {key} differs beyond the tolerance")
+
+
+
+
+# ---------------------------------------------------------------- phase 13
+def _torchrun(args, cwd, timeout):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
+    running ``args`` → (wall seconds, its output); fails on a nonzero exit."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "1"] + args, cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun {args[:2]} exited {r.returncode}:\n"
+                             + (r.stdout + r.stderr)[-4000:])
+    return wall, r.stdout + r.stderr
+
+
+def _logged_metrics(work_dir):
+    """The metric dicts of the train tool's log lines, in order."""
+    import glob
+    import re
+
+    text = "".join(open(p).read() for p in sorted(glob.glob(os.path.join(work_dir, "*.log"))))
+    rows = [ln for ln in text.splitlines() if "rel_llm_loss" in ln and "Epoch [" in ln]
+    return [{k: float(v) for k, v in re.findall(r"(\w+): ([-\d.]+)", ln) if k != "time"}
+            for ln in rows], text
+
+
+def rank_dp_step(cfg_path, ex):
+    """Phase 13c's rank: the config's model on cuda:0 (seed 0), a dp mesh
+    over the 2 gloo ranks, one train step on this rank's image of the B=2
+    batch → (losses, the dp-averaged head gradients, the head's float32
+    masters after the update, peak memory)."""
+    import torch
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.parallel.mesh import axis_group, make_mesh
+    from openpsg_tpu_torch.train.trainer import (
+        TrainBatch,
+        V4Trainer,
+        make_lr_schedule,
+        make_optimizer,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_detector_from_config(Config.fromfile(cfg_path), seed=0, device="cuda:0")
+    mesh = make_mesh(dp=2, tp=1)
+    d = axis_group(mesh, "dp")[1]
+    tr = V4Trainer(model, mesh=mesh)
+    opt = make_optimizer(make_lr_schedule(steps_per_epoch=10))
+    torch.cuda.reset_peak_memory_stats()
+    batch = TrainBatch.from_numpy({k: v[d:d + 1] for k, v in ex.items()}, "cuda:0")
+    # train_step's two halves, keeping the gradients it averaged over dp
+    metrics, grads = tr._reduce_dp(*tr.gradients(batch))
+    metrics["grad_norm"] = tr._update(opt, grads, opt.init(tr.master), None, model.device)
+    torch.cuda.synchronize()
+    return dict(loss={k: float(v) for k, v in metrics.items()},
+                grads={k: g.cpu() for k, g in grads.items()},
+                head={k: v.detach().cpu() for k, v in tr.master.items()},
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_parallel(torch, skv, gat, train_metrics):
+    """Phase 13 (see the module docstring): the distributed entry points at
+    full width on one card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from openpsg_tpu_torch.core.builder import build_detector_from_config
+    from openpsg_tpu_torch.core.config import Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.parallel.launch import spawn
+    from openpsg_tpu_torch.parallel.mesh import axis_group, init_distributed, make_mesh
+    from openpsg_tpu_torch.parallel.sharding import pair_sharded_range
+    from openpsg_tpu_torch.tools import infer
+    from openpsg_tpu_torch.tools.dryrun_multichip import _batch
+    from openpsg_tpu_torch.train.trainer import (
+        TrainBatch,
+        V4Trainer,
+        make_lr_schedule,
+        make_optimizer,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        # 13a: the train tool under the launcher, NCCL at world size 1
+        ann = write_png_fixture(root, VAL_SIZES, seed=1, train_sizes=TRAIN_SIZES)
+        cfg_path = os.path.join(root, "par.py")
+        split = f"dict(ann_file={ann!r}, img_prefix={root!r}, seg_prefix={root!r})"
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                    f"data = dict(train={split}, val={split}, test={split})\n"
+                    "runner = dict(max_epochs=1)\nlog_config = dict(interval=1)\n"
+                    "tpu = dict(mesh=dict(dp=1, tp=1))\n")
+        wd = os.path.join(root, "wd")
+        wall, _ = _torchrun(["-m", "openpsg_tpu_torch.tools.train", cfg_path, "--work-dir", wd,
+                             "--max-steps", "2", "--launcher", "pytorch"], root, 600)
+        got, text = _logged_metrics(wd)
+        if "mesh: {'dp': 1, 'tp': 1}" not in text or "launcher: pytorch" not in text:
+            raise AssertionError("the train tool did not form the mesh:\n" + text[-2000:])
+        want = train_metrics[:2]
+        bad = [(i, k, g[k], w[k]) for i, (g, w) in enumerate(zip(got, want)) for k in w
+               if abs(g[k] - w[k]) > TOL_TRAIN_LOSS * abs(w[k]) + 1e-4]   # 4 decimals logged
+        if len(got) != 2 or bad:
+            raise AssertionError(f"torchrun train losses {got} vs phase 8b {want}: {bad}")
+        log(f"[parallel] 13a train tool under torch.distributed.run (--launcher pytorch, NCCL, "
+            f"world 1, mesh dp=1 tp=1), baseline_v4_ov, 2 steps in {wall:.1f} s (process "
+            f"included): logged losses equal phase 8b's first two within TOL_TRAIN_LOSS: "
+            + "; ".join(f"loss {g['loss']:.4f} rel_llm_loss {g['rel_llm_loss']:.4f} grad_norm "
+                        f"{g['grad_norm']:.4f}" for g in got))
+
+        model = build_detector_from_config(Config.fromfile(cfg_path), seed=0)
+        n_val = len(VAL_SIZES)
+        common = ["--config", cfg_path, "--test-file", ann, "--data-dir", root, "--batch-size",
+                  "2", "--limit", str(n_val), "--single-bucket"]
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        ref = infer.main(common + ["--output-dir", os.path.join(root, "ref")], model=model)
+        skv["launches_by_path"]["infer_batch_tool"] = fca.flash_shared_kv_cross_attn.launches
+        gat["launches_by_path"]["infer_batch_tool"] = mg.sparse_row_gather.launches
+        check_variants(dict(fca.flash_shared_kv_cross_attn.launches_by_variant), n_val)
+        wall_i, out = _torchrun(["-m", "openpsg_tpu_torch.tools.infer"] + common
+                                + ["--output-dir", os.path.join(root, "dist")], root, 600)
+        if "dp mesh over 1 ranks" not in out:
+            raise AssertionError("the infer tool did not form the dp mesh:\n" + out[-2000:])
+        files = sorted(os.path.relpath(os.path.join(d, f), os.path.join(root, "ref"))
+                       for d, _, fs in os.walk(os.path.join(root, "ref")) for f in fs)
+
+        def differ(run):
+            return [f for f in files if not os.path.isfile(os.path.join(root, run, f))
+                    or open(os.path.join(root, "ref", f), "rb").read()
+                    != open(os.path.join(root, run, f), "rb").read()]
+
+        if differ("dist") or not files:
+            raise AssertionError(f"submission files differ: {differ('dist')} of {files}")
+
+        # the same tool over the dp mesh in this process (launches counted),
+        # then 13b, as rank 0 of an NCCL world of 1
+        for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+            os.environ[k] = v
+        init_distributed("pytorch", device="cuda", init_method="file://" + os.path.join(root, "pg"))
+        try:
+            fca.reset_launches()
+            mg.sparse_row_gather.launches = 0
+            dp_run = infer.main(common + ["--output-dir", os.path.join(root, "dp")], model=model)
+            skv["launches_by_path"]["infer_batch_dp"] = fca.flash_shared_kv_cross_attn.launches
+            gat["launches_by_path"]["infer_batch_dp"] = mg.sparse_row_gather.launches
+            check_variants(dict(fca.flash_shared_kv_cross_attn.launches_by_variant), n_val)
+            if differ("dp"):
+                raise AssertionError(f"dp-mesh submission files differ: {differ('dp')}")
+            log(f"[parallel] 13a infer tool --batch-size 2 --single-bucket on {n_val} images: "
+                f"without a process group {ref['seconds']:.2f} s; over a dp mesh of 1 NCCL rank "
+                f"in this process {dp_run['seconds']:.2f} s (shared-KV launches "
+                f"{skv['launches_by_path']['infer_batch_dp']}); under torch.distributed.run "
+                f"{wall_i:.1f} s with the process; {len(files)} submission files byte-equal "
+                "in all three")
+
+            # 13b: the pair axis split over the NCCL world of 1
+            mesh = make_mesh(dp=1, tp=1)
+            fn = model.make_pair_sharded_infer(mesh)
+            H, W = BUCKET
+            rng = np.random.default_rng(13)
+            hws = [(H, W), (1200, 1344)]
+            imgs = [rng.integers(0, 256, (H, W, 3)).astype(np.uint8) for _ in hws]
+            fca.reset_launches()
+            mg.sparse_row_gather.launches = 0
+            t0 = time.perf_counter()
+            sharded = [fn(i, hw) for i, hw in zip(imgs, hws)]
+            torch.cuda.synchronize()
+            t_sharded = time.perf_counter() - t0
+            by_variant = dict(fca.flash_shared_kv_cross_attn.launches_by_variant)
+            skv["launches_by_path"]["pair_sharded"] = fca.flash_shared_kv_cross_attn.launches
+            gat["launches_by_path"]["pair_sharded"] = mg.sparse_row_gather.launches
+            check_variants(by_variant, len(imgs))
+            t0 = time.perf_counter()
+            plains = [model.infer(i, hw) for i, hw in zip(imgs, hws)]
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+            for res, plain in zip(sharded, plains):
+                check_result(res, (H, W))
+                if (res["rel_results"] != plain["rel_results"]
+                        or not np.array_equal(res["pan_results"], plain["pan_results"])
+                        or not np.allclose(res["rel_scores"], plain["rel_scores"], atol=1e-5)):
+                    raise AssertionError("pair-sharded inference differs from infer")
+            # the gathered head outputs against the unsplit head's, on seeded
+            # objects (random weights leave fusion with none at this width)
+            M = model.cfg.head.max_objects_padded
+            lo, hi = pair_sharded_range(mesh, M * M, "dp")
+            shard = (lo, hi, axis_group(mesh, "dp")[0])
+            head_outs = []
+            hook = model.head.register_forward_hook(lambda mod, inp, o: head_outs.append(o))
+            head_err, n_valid = 0.0, 0
+            try:
+                for img, hw in zip(imgs, hws):
+                    seg = model.segment(torch.as_tensor(img, device=model.device))
+                    syn = synthetic_objects(model, seg, model.fuse_select(seg, hw))
+                    n_valid += int(syn[1].sum())
+                    runs = [model.tail_pre(seg["mask_features"], *syn, pair_shard=ps)
+                            for ps in (None, shard)]
+                    (o1, p1, m1), (o2, p2, m2) = runs
+                    for k in ("top_pair_idx", "mc_triplets"):
+                        if k in o1 and not torch.equal(o1[k], o2[k]):
+                            raise AssertionError(f"pair-sharded {k} differs from the unsplit head")
+                    if not torch.equal(m1, m2):
+                        raise AssertionError("pair-sharded prefix mask differs")
+                    floats = [(o1[k], o2[k]) for k in ("top_pair_scores", "mc_scores") if k in o1]
+                    floats += [(p1, p2)] + [(head_outs[-2][k], head_outs[-1][k])
+                                            for k in ("binary_logits", "multiclass_logits",
+                                                      "llm_visual_tokens") if k in head_outs[-1]]
+                    for x, y in floats:
+                        err = float((x.float() - y.float()).abs().max())
+                        head_err = max(head_err, err / max(1.0, float(x.float().abs().max())))
+            finally:
+                hook.remove()
+            if head_err > TOL_F32:
+                raise AssertionError(f"pair-sharded head outputs differ by {head_err:.3g}")
+        finally:
+            dist.destroy_process_group()
+            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                os.environ.pop(k, None)
+        log(f"[parallel] 13b make_pair_sharded_infer over an NCCL world of 1 (NP = 1024 pairs "
+            f"per rank): {len(imgs)} images in {t_sharded:.2f} s ({t_plain:.2f} s through infer "
+            f"after it), shared-KV launches {by_variant}; results equal infer; on 30 seeded "
+            f"objects per image ({n_valid} valid in all) the gathered head logits, visual "
+            f"tokens, top pairs and LLM prefix equal the unsplit head's (largest difference "
+            f"{head_err:.3g} of scale, tol {TOL_F32:g})")
+
+        # 13c: one dp=2 step as 2 gloo ranks sharing cuda:0, against one
+        # process at B=2 on the same weights and batch
+        ex = _batch(model, np.random.default_rng(3), 2)
+        tr = V4Trainer(model)
+        opt = make_optimizer(make_lr_schedule(steps_per_epoch=10))
+        ref_loss, ref_grads = tr.gradients(TrainBatch.from_numpy(ex, "cuda"))
+        ref_loss["grad_norm"] = tr._update(opt, ref_grads, opt.init(tr.master), None,
+                                           model.device)
+        ref = ({k: float(v) for k, v in ref_loss.items()},
+               {k: g.cpu() for k, g in ref_grads.items()},
+               {k: v.detach().cpu() for k, v in tr.master.items()})
+        del model, tr, ref_loss, ref_grads
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn("chip_smoke:rank_dp_step", 2, os.path.join(root, "dp2"), args=(cfg_path, ex),
+                      device="cuda:0", backend="gloo", timeout_s=600)
+        wall_c = time.perf_counter() - t0
+        errs = []
+        largest = max(float(g.abs().max()) for g in ref[1].values())
+        for r, res in enumerate(ranks):
+            # the dp mean of the two ranks' gradients against the B=2 step's
+            # (which adds its images' gradients in float32 too), leaf by
+            # leaf, as phase 8a holds the card against the CPU
+            loss_err, grad_err, zero, upd_err = step_agreement(
+                {"cpu": ref, "card": (res["loss"], res["grads"], res["head"])})
+            diff = max(float((res["grads"][k] - g).abs().max()) for k, g in ref[1].items())
+            errs.append((loss_err, grad_err, upd_err, diff / largest))
+            if (loss_err > TOL_TRAIN_LOSS or grad_err > TOL_TRAIN_GRAD
+                    or upd_err > TOL_TRAIN_UPDATE):
+                raise AssertionError(f"rank {r}: losses {res['loss']} vs {ref[0]} (largest "
+                                     f"relative difference {loss_err:.3g}); gradient leaves "
+                                     f"within {grad_err:.3g} of the leaf; head after the update "
+                                     f"within {upd_err:.3g}")
+        loss_err, grad_err, upd_err, diff = (max(e[i] for e in errs) for i in range(4))
+        log(f"[parallel] 13c dp=2 train step, 2 gloo ranks sharing cuda:0, baseline_v4_ov: "
+            f"{wall_c:.1f} s with the processes; against the single-process B=2 step: losses "
+            f"within {loss_err:.3e} relative (tol {TOL_TRAIN_LOSS:g}; loss "
+            f"{ranks[0]['loss']['loss']:.4f} vs {ref[0]['loss']:.4f}, grad_norm "
+            f"{ranks[0]['loss']['grad_norm']:.4f} vs {ref[0]['grad_norm']:.4f}), the dp-averaged "
+            f"gradients of {len(ref[1])} head leaves within {grad_err:.3e} of the leaf (tol "
+            f"{TOL_TRAIN_GRAD:g}; {len(zero)} leaves 0 up to roundoff, held to 1e-5 of the "
+            f"largest gradient; largest difference of any entry {diff:.3e} of the largest "
+            f"gradient), head masters after the "
+            f"update within {upd_err:.3g} (tol {TOL_TRAIN_UPDATE:g}); peak memory per rank "
+            + ", ".join(f"{r['peak'] / 2**30:.2f} GiB" for r in ranks))
+        log(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,7 @@ from openpsg_tpu_torch.ops.mask_ops import (
     mask_pool_chunked,
     masks_from_idmap,
 )
+from openpsg_tpu_torch.parallel.comm import dp_map
 
 # the config ``model.type`` names this class serves (mmdet's registry names)
 DETECTOR_TYPES = ("Mask2FormerRelation", "Mask2FormerRelationV2", "OpenSeeDRelation")
@@ -438,11 +439,13 @@ class PSGMask2FormerRelation:
         return (masks4 & valid[:, None, None], torch.where(valid, oids, torch.zeros_like(oids)),
                 valid, labels, valid.float(), pan)
 
-    def infer_batch(self, images, img_hws) -> List[Dict[str, Any]]:
-        """Per-image :meth:`infer` over a batch.  The JAX package vmaps the
-        per-image program, whose results equal per-image inference; on one
-        card a loop is that program."""
-        return [self.infer(img, hw) for img, hw in zip(images, img_hws)]
+    def infer_batch(self, images, img_hws, mesh=None) -> List[Dict[str, Any]]:
+        """Per-image :meth:`infer` over a batch, in image order (the JAX
+        package vmaps the per-image program, whose results equal per-image
+        inference).  ``mesh``: data parallel over its ``dp`` ranks, each
+        running its contiguous block of the images (JAX
+        mask2former_relation.py:571-605); every rank gets all results."""
+        return dp_map(lambda i: self.infer(images[i], img_hws[i]), len(images), mesh)
 
     def postprocess(self, dev: Dict[str, np.ndarray]) -> Dict[str, Any]:
         valid = dev["object_valid"]

@@ -8,7 +8,9 @@
 Entry points: :meth:`PSGv4.infer` (one image), :meth:`PSGv4.infer_microbatch`
 (the deployment program: everything up to the LLM one image at a time, then
 one prefill and decode over all images' pairs), :meth:`PSGv4.infer_batch`
-and :meth:`PSGv4.infer_gt` (ground-truth masks in place of fusion).
+(data parallel over a mesh's ``dp`` ranks), :meth:`PSGv4.make_pair_sharded_infer`
+(one image, its pairs split over the ranks) and :meth:`PSGv4.infer_gt`
+(ground-truth masks in place of fusion).
 
 Weights are seeded random at construction (``seed``); with
 ``llm.quant`` the seeded dense LLM is quantized by :func:`quantize_llama`.
@@ -28,6 +30,9 @@ import numpy as np
 import torch
 
 from openpsg_tpu_torch import resolve_device
+from openpsg_tpu_torch.parallel.comm import all_gather, dp_map
+from openpsg_tpu_torch.parallel.mesh import axis_group
+from openpsg_tpu_torch.parallel.sharding import pair_sharded_range
 from openpsg_tpu_torch.data.vocab import (
     INSTANCE_OFFSET,
     NUM_THING_CLASSES,
@@ -364,9 +369,13 @@ class PSGv4:
 
     @torch.no_grad()
     def tail_pre(self, mask_features, object_masks, valid, labels, sel_oid,
-                 obj_scores, pan_seg, pass_count=None, plain_attention: bool = False):
+                 obj_scores, pan_seg, pass_count=None, plain_attention: bool = False,
+                 pair_shard=None):
         """Pair instructions → Q-Former → existence heads → top-K prefix.
         ``plain_attention`` forces the plain cross-attention (tests only).
+        ``pair_shard`` ``(lo, hi, group)``: the Q-Former runs on pairs
+        ``[lo, hi)`` only and the head outputs are all-gathered over
+        ``group`` back to every pair.
         → (out dict, prefix [K, R+Lp, D], prefix mask [K, R+Lp])."""
         c = self.cfg
         M = c.head.max_objects_padded
@@ -374,8 +383,17 @@ class PSGv4:
         pair_idx = torch.arange(M * M, device=dev)
         sub_lab, obj_lab = labels[pair_idx // M], labels[pair_idx % M]
         text_ids, text_mask = assemble_pair_instructions(self.qf_parts, sub_lab, obj_lab)
-        head_out = self.head(mask_features, object_masks, valid, text_ids, text_mask,
+        if pair_shard is None:
+            head_out = self.head(mask_features, object_masks, valid, text_ids, text_mask,
+                                 plain_attention=plain_attention)
+        else:
+            lo, hi, group = pair_shard
+            part = self.head(mask_features, object_masks, valid, text_ids, text_mask,
+                             pair_select=torch.arange(lo, hi, device=dev),
                              plain_attention=plain_attention)
+            head_out = {k: all_gather(part[k].contiguous(), 0, group) for k in
+                        ("binary_logits", "multiclass_logits", "llm_visual_tokens")
+                        if k in part}
         pair_valid = valid[pair_idx // M] & valid[pair_idx % M]
         out = {
             "pan_seg": pan_seg,
@@ -450,13 +468,44 @@ class PSGv4:
             del seg, sel
         return self._decode_postprocess(pre, trip_budget, stage_times)
 
-    def infer_batch(self, images, img_hws,
-                    trip_budget: Optional[int] = None) -> List[Dict[str, Any]]:
-        """Per-image :meth:`infer` over a batch → one result dict per image.
-        The JAX package vmaps the per-image program (psg_v4.py:659-686),
-        whose results equal per-image inference; on one card a loop is that
-        program.  The data-parallel mesh comes with the parallelism slice."""
-        return [self.infer(img, hw, trip_budget) for img, hw in zip(images, img_hws)]
+    def infer_batch(self, images, img_hws, trip_budget: Optional[int] = None,
+                    mesh=None) -> List[Dict[str, Any]]:
+        """Per-image :meth:`infer` over a batch → one result dict per image,
+        in image order (the JAX package vmaps the per-image program,
+        psg_v4.py:659-686, whose results equal per-image inference).
+
+        ``mesh``: data parallel over its ``dp`` ranks.  Each dp rank runs
+        its contiguous block of the images (JAX's ``P("dp")`` split; the
+        batch must divide dp), and every rank gets all results back
+        (``all_gather_object``).  A tp-sharded LLM decodes within each dp
+        rank's tp group."""
+        return dp_map(lambda i: self.infer(images[i], img_hws[i], trip_budget),
+                      len(images), mesh)
+
+    def make_pair_sharded_infer(self, mesh, axis: str = "dp"):
+        """Latency-oriented single-image inference with the PAIR axis split
+        over the mesh ``axis`` (JAX psg_v4.py:629-657, the sequence-parallel
+        analogue): the segmenter and fusion run on every rank, the Q-Former
+        on this rank's ``M*M / n`` pairs (the shared-KV kernel launches with
+        that many), the head outputs are all-gathered back to every pair,
+        then top-k, decode and postprocess give the single-device result.
+        Where the pair count does not divide the axis it runs unsplit.
+
+        → ``fn(image_u8, img_hw, trip_budget=None)`` → the result dict of
+        :meth:`infer` (the JAX function returns the device tree that its
+        ``postprocess`` takes)."""
+        M = self.cfg.head.max_objects_padded
+        rng = pair_sharded_range(mesh, M * M, axis)
+        g = axis_group(mesh, axis)
+        shard = None if rng is None or g is None else (rng[0], rng[1], g[0])
+
+        def fn(image_u8, img_hw, trip_budget: Optional[int] = None) -> Dict[str, Any]:
+            seg = self.segment(torch.as_tensor(image_u8, device=self.device))
+            sel = self.fuse_select(seg, img_hw)
+            pre = self.tail_pre(seg["mask_features"], *sel, pair_shard=shard)
+            return self._decode_postprocess([pre], trip_budget, None)[0]
+
+        return fn
 
     def infer_gt(self, image_u8, gt_masks, gt_oids, gt_valid) -> Dict[str, Any]:
         """Ground-truth-mask ablation (``_infer_gt_jit``, psg_v4.py:558-605):

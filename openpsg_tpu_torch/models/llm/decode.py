@@ -6,6 +6,11 @@ only), then single-token steps: HF positions ``cumsum(mask) - 1``, EOS
 early exit, tokens after a sequence's EOS emitted as ``pad_id``, greedy
 log-prob scores.  ``trip_budget`` is a runtime cap on the number of decode
 steps, read on every call.
+
+A tensor-parallel LLM (``parallel.sharding.shard_params``) decodes the
+same way on every tp rank: its cache holds the rank's kv heads, and the
+logits are whole on every rank, so the greedy tokens and the early-exit
+test agree across the group and its collectives stay in step.
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ def greedy_decode(
     B, Lp, _ = prefix_embeds.shape
     dev = prefix_embeds.device
     S = Lp + max_new_tokens
-    hd = c.dim // c.n_heads
 
     key_mask = torch.cat(
         [prefix_mask, torch.zeros(B, max_new_tokens, dtype=torch.bool, device=dev)], dim=1)
@@ -47,7 +51,7 @@ def greedy_decode(
 
     logits, (k0, v0) = model(input_embeds=prefix_embeds, attention_mask=prefix_mask,
                              positions=positions, last_logit_only=True)
-    shape = (c.n_layers, B, S, c.n_kv_heads, hd)
+    shape = (c.n_layers, B, S) + tuple(k0.shape[3:])     # the rank's kv heads
     cache = (torch.zeros(shape, dtype=c.dtype, device=dev),
              torch.zeros(shape, dtype=c.dtype, device=dev))
     cache[0][:, :, :Lp] = k0

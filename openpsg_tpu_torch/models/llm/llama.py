@@ -5,7 +5,16 @@ the optional int8-activation prefill (``act_int8``).  A forward without a
 cache attends among its own tokens (prefill) and returns their (k, v); a
 forward with a cache reads it as read-only keys plus the current tokens'
 own keys, then writes those keys into the cache in place (the JAX version
-returns an updated copy)."""
+returns an updated copy).
+
+Tensor parallel: :func:`openpsg_tpu_torch.parallel.sharding.shard_params`
+keeps each tp rank's block of the split weights and sets ``tp`` on the
+modules.  Then each rank attends with its whole query heads (the KV cache
+holds its kv heads), the row-parallel ``wo`` / ``w_down`` sum their
+float32 partial products over tp before the scale and the cast, the
+embedding looks up its vocabulary block and sums, and ``lm_head``'s
+column blocks are gathered, so every rank holds the whole logits and
+takes the same greedy token."""
 
 from __future__ import annotations
 
@@ -18,6 +27,13 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from openpsg_tpu_torch.models.common import mm_f32
+from openpsg_tpu_torch.parallel.comm import (
+    all_reduce,
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
+    row_amax,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,17 +181,30 @@ class QDense(nn.Module):
         self.scale = nn.Parameter(
             torch.empty(out_features, dtype=torch.float32), requires_grad=False)
 
-    def forward(self, x):
+    def forward(self, x, tp_group=None):
+        """``tp_group``: x holds this rank's block of the input features and
+        ``weight_q`` the matching columns (row parallel): the int8 scale
+        ``s_x`` takes the whole row's max |x| (a MAX over the group), and
+        the int32 or float32 partial products are summed over the group
+        before ``* scale`` and the cast."""
         x2 = x.reshape(-1, x.shape[-1])
         if self.act_int8 and x2.shape[0] >= self.ACT_INT8_MIN_ROWS:
             xf = x2.float()
-            s_x = _per_127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6))
+            amax = xf.abs().amax(dim=-1, keepdim=True) if tp_group is None else row_amax(
+                xf, tp_group)
+            s_x = _per_127(torch.clamp(amax, min=1e-6))
             xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
             # on CUDA _int_mm needs more than 16 rows (here ≥ 256) and K, N
             # multiples of 8 (true of every Llama width the configs use)
-            y = torch._int_mm(xq, self.weight_q.t()).float() * s_x * self.scale
+            acc = torch._int_mm(xq, self.weight_q.t())
+            if tp_group is not None:
+                acc = all_reduce(acc, "sum", tp_group)      # int32: exact
+            y = acc.float() * s_x * self.scale
         else:
-            y = _weight_only_mm(x2, self.weight_q) * self.scale
+            y = _weight_only_mm(x2, self.weight_q)
+            if tp_group is not None:
+                y = reduce_from_group(y, tp_group)
+            y = y * self.scale
         return y.to(self.dtype).reshape(*x.shape[:-1], -1)
 
 
@@ -206,7 +235,35 @@ def quantize_llama(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _row_parallel(layer: nn.Module, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel projection of this rank's input block: float32
+    partial products summed over tp, then cast (the scale of a ``QDense``
+    applied after the sum)."""
+    if tp is None:
+        return layer(x)
+    if isinstance(layer, QDense):
+        return layer(x, tp_group=tp.group)
+    if x.is_cuda and x.dtype != torch.float32 and not torch.is_grad_enabled():
+        part = torch.mm(x.reshape(-1, x.shape[-1]), layer.weight.t(),
+                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        part = x.float() @ layer.weight.float().t()
+    return reduce_from_group(part, tp.group).to(x.dtype)
+
+
+def _kv_heads(layer: nn.Module, h: torch.Tensor, tp) -> torch.Tensor:
+    """k or v of every kv head from a replicated projection, cut to the
+    heads this rank's query heads use.  A trainable replicated weight gets
+    its gradient summed over tp (each rank back-propagates only its
+    heads' share)."""
+    if isinstance(layer, nn.Linear) and layer.weight.requires_grad:
+        return F.linear(h, copy_to_group(layer.weight, tp.group))
+    return layer(h)
+
+
 class LlamaBlock(nn.Module):
+    tp = None   # the tp runtime (parallel.sharding.TPState) once sharded
+
     def __init__(self, c: LlamaConfig):
         super().__init__()
         self.c = c
@@ -229,26 +286,49 @@ class LlamaBlock(nn.Module):
         c = self.c
         B, L, _ = x.shape
         hd = c.dim // c.n_heads
+        tp = self.tp
+        split_q = tp is not None and tp.layout.q
+        heads = tp.heads_local if split_q else c.n_heads
         h = self.attn_norm(x)
-        q = apply_rope(self.wq(h).reshape(B, L, c.n_heads, hd), *rot)
-        k = apply_rope(self.wk(h).reshape(B, L, c.n_kv_heads, hd), *rot)
-        v = self.wv(h).reshape(B, L, c.n_kv_heads, hd)
-        rep = c.n_heads // c.n_kv_heads
+        if split_q:
+            h = copy_to_group(h, tp.group)
+        q = apply_rope(self.wq(h).reshape(B, L, heads, hd), *rot)
+        if split_q and not tp.layout.kv:
+            lo, n = tp.kv_lo, tp.kv_local
+            k = _kv_heads(self.wk, h, tp).reshape(B, L, c.n_kv_heads, hd)[:, :, lo:lo + n]
+            v = _kv_heads(self.wv, h, tp).reshape(B, L, c.n_kv_heads, hd)[:, :, lo:lo + n]
+            k = apply_rope(k, *rot)
+        else:
+            n = tp.kv_local if split_q else c.n_kv_heads
+            k = apply_rope(self.wk(h).reshape(B, L, n, hd), *rot)
+            v = self.wv(h).reshape(B, L, n, hd)
+        rep = heads // k.shape[2]
         expand = (lambda t: t.repeat_interleave(rep, dim=2)) if rep > 1 else (lambda t: t)
-        s_cache = mm_f32(q, expand(ck.to(q.dtype)), "blhd,bmhd->bhlm")
-        s_cur = mm_f32(q, expand(k), "blhd,bmhd->bhlm")
-        attn = torch.cat([s_cache, s_cur], dim=-1) * (hd ** -0.5)
-        attn = torch.softmax(attn.masked_fill(masked_out, -1e9), dim=-1).to(x.dtype)
         S = ck.shape[1]
-        out = (torch.einsum("bhlm,bmhd->blhd", attn[..., :S], expand(cv.to(v.dtype)))
-               + torch.einsum("bhlm,bmhd->blhd", attn[..., S:], expand(v)))
-        x = x + self.wo(out.reshape(B, L, c.n_heads * hd))
+        scores = mm_f32(q, expand(k), "blhd,bmhd->bhlm")
+        if S:     # [cache ; current]
+            scores = torch.cat([mm_f32(q, expand(ck.to(q.dtype)), "blhd,bmhd->bhlm"), scores], -1)
+        attn = scores * (hd ** -0.5)
+        attn = torch.softmax(attn.masked_fill(masked_out, -1e9), dim=-1).to(x.dtype)
+        out = torch.einsum("bhlm,bmhd->blhd", attn[..., S:], expand(v))
+        if S:
+            out = torch.einsum("bhlm,bmhd->blhd", attn[..., :S], expand(cv.to(v.dtype))) + out
+        out = out.reshape(B, L, heads * hd)
+        x = x + (_row_parallel(self.wo, out, tp) if split_q else self.wo(out))
         h = self.ffn_norm(x)
-        down = self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
+        split_ffn = tp is not None and tp.layout.ffn
+        if split_ffn:
+            h = copy_to_group(h, tp.group)
+        act = F.silu(self.w_gate(h)) * self.w_up(h)
+        down = _row_parallel(self.w_down, act, tp) if split_ffn else self.w_down(act)
         return x + down, k, v
 
 
 class Llama(nn.Module):
+    tp = None
+    # a pipeline stage's layers [lo, hi) (parallel.pipeline.shard_pipeline)
+    stage_range = None
+
     def __init__(self, c: LlamaConfig, lm_head: bool = True):
         """``lm_head=False``: a trunk whose callers only take the hidden
         states (``return_hidden``), as flax builds one that never calls
@@ -282,6 +362,9 @@ class Llama(nn.Module):
         c = self.c
         if remat and cache is not None:
             raise ValueError("remat is the training forward: it takes no cache")
+        if self.stage_range is not None:
+            raise ValueError("a pipeline stage holds some layers only: run it through "
+                             "parallel.pipeline.pipelined_llama_logits")
         B, L, _ = input_embeds.shape
         hd = c.dim // c.n_heads
         dev = input_embeds.device
@@ -334,10 +417,20 @@ class Llama(nn.Module):
             return x, new_cache
         if last_logit_only:
             x = x[:, -1:]
-        return self.lm_head(x).float(), new_cache
+        return self.logits(x), new_cache
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``lm_head`` on final-normed states → float32 logits over the
+        whole vocabulary (column blocks gathered over tp)."""
+        tp = self.tp
+        if tp is None or not tp.layout.vocab:
+            return self.lm_head(x).float()
+        return gather_from_group(self.lm_head(copy_to_group(x, tp.group)).float(), -1, tp.group)
 
 
 class LlamaWithEmbeddings(nn.Module):
+    tp = None
+
     def __init__(self, c: LlamaConfig, lm_head: bool = True):
         super().__init__()
         self.cfg = c
@@ -345,9 +438,17 @@ class LlamaWithEmbeddings(nn.Module):
         self.core = Llama(c, lm_head=lm_head)
 
     def embed(self, token_ids):
-        return self.tok_embed(token_ids)
+        tp = self.tp
+        if tp is None or not tp.layout.vocab:
+            return self.tok_embed(token_ids)
+        # this rank's vocabulary block: a masked lookup, summed over tp
+        w = self.tok_embed.weight
+        local = token_ids - tp.rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        e = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
+        return reduce_from_group(e, tp.group)
 
     def forward(self, *, input_embeds=None, token_ids=None, **kw):
         if input_embeds is None:
-            input_embeds = self.tok_embed(token_ids)
+            input_embeds = self.embed(token_ids)
         return self.core(input_embeds, **kw)

@@ -35,6 +35,14 @@ decode steps (:class:`AutoMBController`); ``--no-auto-micro-batch`` pins
 per-image.  A tail chunk is padded with copies of its last image, so every
 chunk has the same size.
 
+Data parallel: started as ranks of ``python -m torch.distributed.run`` (its
+``RANK`` and ``WORLD_SIZE`` in the environment), the tool joins their
+process group, and ``--batch-size N`` (N a multiple of the ranks) runs
+``infer_batch`` over a dp mesh of every rank, each rank running its block
+of the N images (JAX tools/infer.py:203-212); rank 0 alone writes the
+submission, the PNGs and the ``--vis`` output.  ``--micro-batch`` stays the
+single-device alternative.
+
 ``--vis DIR`` writes each image's panoptic overlay as
 ``DIR/{stem}_pan_seg.jpg`` and prints its top-20 triplet table (cv2 draws
 the overlay, as in the JAX tool).
@@ -153,6 +161,7 @@ def main(argv=None, model=None):
     args = parse_args(argv)
 
     from openpsg_tpu_torch import resolve_device
+    from openpsg_tpu_torch.parallel.mesh import init_distributed, launched, make_mesh
     from openpsg_tpu_torch.core.builder import build_detector_from_config
     from openpsg_tpu_torch.core.config import Config
     from openpsg_tpu_torch.data.preprocess import (
@@ -181,9 +190,17 @@ def main(argv=None, model=None):
     cfg = Config.fromfile(args.config)
     test_file = args.test_file or cfg.data.test.ann_file
     data_dir = args.data_dir or cfg.data.test.img_prefix
+    rank, world, mesh = 0, 1, None
+    if launched():
+        rank, world, device = init_distributed("pytorch", device=args.device)
+        if args.batch_size > 1 and args.batch_size % world == 0:
+            mesh = make_mesh(dp=world, tp=1)
+            print(f"[rank {rank}] dp mesh over {world} ranks: --batch-size "
+                  f"{args.batch_size} runs {args.batch_size // world} images per rank")
+    else:
+        device = resolve_device(args.device)
     if model is None:
-        model = build_detector_from_config(cfg, seed=args.seed,
-                                           device=resolve_device(args.device))
+        model = build_detector_from_config(cfg, seed=args.seed, device=device)
     print(f"device: {model.device}; image decoder: {image_decoder()}")
     is_v4 = isinstance(model, PSGv4)
     if args.micro_batch and not is_v4:
@@ -211,7 +228,8 @@ def main(argv=None, model=None):
     preproc = Preprocessor(scale=scale,
                            buckets=None if args.single_bucket else aspect_buckets(scale))
 
-    writer = SubmissionWriter(args.output_dir, seed=args.seed)
+    # rank 0 writes the submission, the PNGs and the overlays
+    writer = SubmissionWriter(args.output_dir, seed=args.seed) if rank == 0 else None
     timer = SectionTimer()
     t0 = time.time()
     B = max(args.micro_batch or args.batch_size, 1)
@@ -321,9 +339,9 @@ def main(argv=None, model=None):
                     if args.micro_batch:
                         results = model.infer_microbatch(imgs, hws)[: len(exs)]
                     else:
-                        results = model.infer_batch(imgs, hws)[: len(exs)]
+                        results = model.infer_batch(imgs, hws, mesh=mesh)[: len(exs)]
             with timer.section("write"):
-                for j, (ex, res) in enumerate(zip(exs, results)):
+                for j, (ex, res) in enumerate(zip(exs, results) if writer is not None else ()):
                     orig_idx, _ = items[j]
                     # crop the padding off BEFORE resizing back to the original
                     # size (nearest keeps ids intact)
@@ -363,7 +381,7 @@ def main(argv=None, model=None):
                 print(f"[{done}/{len(records)}] {done / (time.time() - t0):.2f} img/s")
             ci += 1
 
-    path = writer.finalize()
+    path = writer.finalize() if writer is not None else None
     dt = time.time() - t0
     n = len(records)
     print(f"Inference finished: {n} images in {dt:.1f}s "

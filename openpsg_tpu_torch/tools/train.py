@@ -19,9 +19,24 @@ The groups ``train_cfg.freeze_layers`` leaves trainable are optimized
 (the reference recipe: the relation head; for the family, the head and
 the object class embeddings); ``optimizer.paramwise_cfg``,
 the train ``Resize`` range (as scale jitter), ``--auto-scale-lr`` and the
-schedule are applied as the JAX tool applies them.  The port trains on one
-device: a ``tpu.mesh`` asking for more runs unsharded, and ``--launcher``
-other than ``none`` is refused (both wait for the parallelism slice).
+schedule are applied as the JAX tool applies them.
+
+Parallel runs start under ``torch.distributed.run`` with ``--launcher
+pytorch`` (the reference's torchrun recipe), one rank per process:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m openpsg_tpu_torch.tools.train CFG --launcher pytorch
+
+The ranks form the config's ``tpu.mesh``: ``dp`` × ``tp`` (Megatron tp of
+the LLM, ``parallel.sharding``), or with ``pp > 1`` ``dp`` × ``pp`` [×
+``tp``] (GPipe stages of the LLM, ``parallel.pipeline``, and the pipelined
+train step).  The global batch is ``samples_per_gpu × dp`` (which
+``--auto-scale-lr`` reads); every rank draws the same host batch from the
+same seeded generator and keeps its rows, so the sampling is the one
+process's.  Rank 0 logs and saves; checkpoints hold whole tensors (tp and
+pp parts gathered), so the infer tool restores them unchanged.  A mesh
+that wants more ranks than were launched runs unsharded (dp over the
+launched ranks; on one device without a launcher), as the JAX tool does.
 
 Runs on the card unless ``--device cpu`` is given.  ``--stage-times``
 splits each step into data, segmenter, head, LLM forward and backward
@@ -42,8 +57,11 @@ import time
 
 import numpy as np
 
-PARALLEL_SLICE = ("the dp/tp/pp meshes come with the port's parallelism slice "
-                  "(ROADMAP 'Port: still to do')")
+class _Quiet:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def info(self, *a, **k):
+        pass
 
 
 def parse_args(argv=None):
@@ -56,7 +74,7 @@ def parse_args(argv=None):
                     help="resume from <work_dir>/ckpts when it holds a step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--diff-seed", action="store_true",
-                    help="accepted for compatibility (one process: no effect)")
+                    help="accepted for compatibility (every rank draws the same host batch)")
     ap.add_argument("--max-steps", type=int, default=0, help="debug cap")
     ap.add_argument("--validate", action="store_true",
                     help="panoptic PQ on the val split after each epoch")
@@ -190,9 +208,10 @@ def main(argv=None, model=None):
     (with ``--stage-times``), logged metrics, the steps saved, validation
     results, peak device memory (on the card)."""
     args = parse_args(argv)
-    if args.launcher != "none":
-        raise SystemExit(f"--launcher {args.launcher}: the port trains in one process on one "
-                         f"device; {PARALLEL_SLICE}")
+    if args.launcher not in ("none", "pytorch"):
+        raise SystemExit(f"--launcher {args.launcher}: the port's parallelism runs under "
+                         "python -m torch.distributed.run with --launcher pytorch "
+                         "(or none for one process)")
     import platform
 
     import torch
@@ -228,11 +247,20 @@ def main(argv=None, model=None):
     from openpsg_tpu_torch.models.detectors.mask2former_relation import DETECTOR_TYPES
 
     is_family = cfg.model.get("type") in DETECTOR_TYPES
-    device = resolve_device(args.device)
+    rank, world = 0, 1
+    if args.launcher == "pytorch":
+        from openpsg_tpu_torch.parallel.mesh import init_distributed
+
+        rank, world, device = init_distributed("pytorch", device=args.device)
+    else:
+        device = resolve_device(args.device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
-    os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(os.path.join(work_dir, os.path.basename(args.config)))
-    logger = setup_logger(work_dir)
+    if rank == 0:
+        os.makedirs(work_dir, exist_ok=True)
+        cfg.dump(os.path.join(work_dir, os.path.basename(args.config)))
+        logger = setup_logger(work_dir)
+    else:
+        logger = _Quiet()
     logger.info("Environment info:\n" + "\n".join(f"  {k}: {v}" for k, v in (
         ("python", sys.version.replace("\n", " ")),
         ("platform", platform.platform()),
@@ -242,7 +270,8 @@ def main(argv=None, model=None):
         ("device", f"{device}" + (f" ({torch.cuda.get_device_name(device)})"
                                   if device.type == "cuda" else "")),
     )))
-    logger.info(f"config: {args.config} seed: {args.seed}")
+    logger.info(f"config: {args.config} seed: {args.seed} launcher: {args.launcher} "
+                f"ranks: {world}")
 
     # mmcv workflow: a ('val', n) phase enables the per-epoch PQ pass
     workflow = cfg.get("workflow", [("train", 1)]) or [("train", 1)]
@@ -264,11 +293,21 @@ def main(argv=None, model=None):
     logger.info(f"train dataset: {len(dataset)} images")
 
     mesh_cfg = dict(cfg.get("tpu", {}) or {}).get("mesh") or {}
-    wants = int(mesh_cfg.get("dp", 1)) * int(mesh_cfg.get("tp", 1)) * int(mesh_cfg.get("pp", 1))
-    if wants > 1:
-        logger.info(f"tpu.mesh {dict(mesh_cfg)} wants {wants} devices; the port runs "
-                    f"unsharded on one device ({PARALLEL_SLICE})")
-    batch_size = cfg.data.get("samples_per_gpu", 1)
+    mesh, dp_rank, dp_n, tp_n, pp_n = _make_mesh(mesh_cfg, args.launcher, world, is_family,
+                                                 logger)
+    if mesh is not None and not is_family and (tp_n > 1 or pp_n > 1):
+        from openpsg_tpu_torch.parallel.pipeline import shard_pipeline
+        from openpsg_tpu_torch.parallel.sharding import assert_llm_sharded, shard_params
+
+        (shard_pipeline if pp_n > 1 else shard_params)(model.llm, mesh)
+        if tp_n > 1:
+            logger.info(f"LLM tensor-sharded tensors on tp={tp_n}: "
+                        f"{assert_llm_sharded(model.llm, mesh)}")
+        if pp_n > 1:
+            logger.info(f"LLM pipeline stage layers: {model.llm.core.stage_range} of "
+                        f"{model.cfg.llm.n_layers}")
+    spg = cfg.data.get("samples_per_gpu", 1)
+    batch_size = spg * dp_n
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     max_epochs = cfg.runner.get("max_epochs", 12)
 
@@ -290,7 +329,7 @@ def main(argv=None, model=None):
     trainable = trainable_groups(cfg)
     logger.info(f"trainable groups: {list(trainable)} frozen: "
                 f"{sorted(freeze_keys_from_config(cfg))}")
-    trainer = (M2FTrainer if is_family else V4Trainer)(model, trainable=trainable)
+    trainer = (M2FTrainer if is_family else V4Trainer)(model, trainable=trainable, mesh=mesh)
 
     lr_mult = decay_mult = None
     pw = dict(cfg.optimizer.get("paramwise_cfg", {}) or {})
@@ -304,6 +343,9 @@ def main(argv=None, model=None):
                          weight_decay=cfg.optimizer.get("weight_decay", 0.05),
                          lr_mult=lr_mult, decay_mult=decay_mult)
     opt_state = opt.init(trainer.master)
+    step_fn = functools.partial(trainer.train_step, optimizer=opt)
+    if pp_n > 1 and mesh is not None:
+        step_fn = trainer.make_pipelined_train_step(opt, mesh, n_micro=mesh_cfg.get("pp_micro"))
 
     ckpt_dir = os.path.join(work_dir, "ckpts")
     ckpt = PartCheckpointer(ckpt_dir, max_keep=cfg.checkpoint_config.get("max_keep_ckpts", 3))
@@ -312,7 +354,8 @@ def main(argv=None, model=None):
                                   is not None else None)
     if resume:
         params, opt_state, _, start_step = PartCheckpointer(resume).restore(device=device)
-        trainer.load_master(params)
+        trainer.load_master(trainer.localize(params))
+        opt_state.update(mu=trainer.localize(opt_state["mu"]), nu=trainer.localize(opt_state["nu"]))
         logger.info(f"resumed from {resume} step {start_step}")
 
     H, _ = model._model_hw()
@@ -344,14 +387,21 @@ def main(argv=None, model=None):
             examples = next(batches, None)
             if examples is None:
                 break
-            if is_family:
+            if dp_n > 1:
+                # the global batch's pair sampling, then this dp rank's rows
+                arrays = (m2f_host_batch(examples) if is_family else host_batch(
+                    examples, model.tokenizer, model.relation_names, nprng, S, T, L_LAB))
+                rows = slice(dp_rank * spg, (dp_rank + 1) * spg)
+                cls = M2FTrainBatch if is_family else TrainBatch
+                batch = cls.from_numpy({k: v[rows] for k, v in arrays.items()}, device)
+            elif is_family:
                 batch = M2FTrainBatch.from_numpy(m2f_host_batch(examples), device)
             else:
                 batch = TrainBatch.from_numpy(host_batch(
                     examples, model.tokenizer, model.relation_names, nprng, S, T, L_LAB),
                     device)
             times = {"data": (time.perf_counter() - t0) * 1e3} if args.stage_times else None
-            metrics = trainer.train_step(batch, opt, opt_state, times)
+            metrics = step_fn(batch, opt_state=opt_state, stage_times=times)
             sync()
             stats["step_seconds"].append(time.perf_counter() - t0)
             if times is not None:
@@ -368,10 +418,18 @@ def main(argv=None, model=None):
                 logger.info(f"Epoch [{epoch + 1}][{in_epoch}/{steps_per_epoch}] time: {dt:.3f}s "
                             + " ".join(f"{k}: {v:.4f}" for k, v in sorted(m.items())) + split)
             done = bool(args.max_steps) and global_step >= args.max_steps
-        ckpt.save(global_step, trainer.master, opt_state,
-                  meta={"epoch": epoch + 1, "classes": model.class_names, **_ckpt_meta()})
+        # whole tensors: every rank takes part in the gather, rank 0 writes
+        master = trainer.whole(trainer.master)
+        state = dict(opt_state, mu=trainer.whole(opt_state["mu"]),
+                     nu=trainer.whole(opt_state["nu"]))
+        if rank == 0:
+            ckpt.save(global_step, master, state,
+                      meta={"epoch": epoch + 1, "classes": model.class_names, **_ckpt_meta()})
         stats["saved_steps"].append(global_step)
-        if args.validate:
+        if args.validate and pp_n > 1 and mesh is not None:
+            logger.info("validation skipped: a pipeline-cut LLM does not decode")
+        elif args.validate and (rank == 0 or tp_n > 1):
+            # a tp-sharded LLM decodes on all its ranks together
             with torch.no_grad():
                 pq = _run_pq_validation(cfg, model, preproc, args.val_limit)
             stats["val"].append(pq)
@@ -383,7 +441,50 @@ def main(argv=None, model=None):
     if device.type == "cuda":
         stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     logger.info("training done")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+    stats.update(rank=rank, world=world)
     return stats
+
+
+def _make_mesh(mesh_cfg, launcher: str, world: int, is_family: bool, logger):
+    """``tpu.mesh`` over the launched ranks → (mesh or None, this rank's dp
+    index, dp, tp, pp).  A mesh that wants more ranks than were launched
+    runs unsharded: dp over the launched ranks (JAX: the global batch over
+    every device), on one device without a launcher."""
+    dp, tp, pp = (int(mesh_cfg.get(k, 1) or 1) for k in ("dp", "tp", "pp"))
+    wants = dp * tp * pp
+    if launcher == "none":
+        if wants > 1:
+            logger.info(f"tpu.mesh {dict(mesh_cfg)} wants {wants} ranks, have 1 — runs "
+                        "unsharded on one device (launch with torch.distributed.run and "
+                        "--launcher pytorch for the mesh)")
+        return None, 0, 1, 1, 1
+    from openpsg_tpu_torch.parallel.mesh import axis_group, make_mesh
+
+    if wants > world:
+        logger.info(f"tpu.mesh {dict(mesh_cfg)} wants {wants} ranks, have {world} — runs "
+                    f"unsharded: dp over the {world} ranks")
+        dp, tp, pp = world, 1, 1
+    elif wants < world:
+        raise SystemExit(f"tpu.mesh {dict(mesh_cfg)} holds {wants} ranks but {world} were "
+                         "launched: set --nproc_per_node to dp * tp * pp")
+    if pp > 1:
+        if is_family:
+            raise SystemExit("tpu.mesh.pp applies to the v4 (LLM) recipe only")
+        from openpsg_tpu_torch.parallel.pipeline import make_dp_pp_mesh
+
+        mesh = make_dp_pp_mesh(pp=pp, dp=dp, tp=tp)
+        logger.info(f"mesh: {{'dp': {dp}, 'pp': {pp}" + (f", 'tp': {tp}}}" if tp > 1 else "}")
+                    + " (GPipe pp" + ("×tp" if tp > 1 else "") + ")")
+    else:
+        if is_family and tp > 1:
+            raise SystemExit("tpu.mesh.tp applies to the v4 (LLM) recipe only")
+        mesh = make_mesh(dp=dp, tp=tp)
+        logger.info(f"mesh: {{'dp': {dp}, 'tp': {tp}}}")
+    return mesh, axis_group(mesh, "dp")[1], dp, tp, pp
 
 
 def _run_pq_validation(cfg, model, preproc, limit):

@@ -26,6 +26,17 @@ parameters cast to bf16 at use.
 
 GT-dependent sampling (32 Q-Former pairs at 3:1 negatives to positives, up
 to 4 positive LLM pairs) runs on the host: :func:`sample_training_pairs`.
+
+Parallel (a trainer built with ``mesh=``): each dp rank steps on its own
+rows of the global batch; the gradients and losses are averaged over dp
+(one all-reduce) BEFORE the global-norm clip and AdamW, so every rank
+takes the same update.  A tp-sharded LLM (``parallel.sharding.shard_params``)
+keeps its masters and AdamW moments per shard, and the global norm sums
+the squares of split tensors over tp (and of pipeline-stage layers over
+pp) while counting replicated ones once.
+:meth:`V4Trainer.make_pipelined_train_step` runs the LLM's teacher forcing
+as one GPipe call over a ("dp", "pp"[, "tp"]) mesh (JAX
+``make_pipelined_train_step``, trainer.py:396-462).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from openpsg_tpu_torch.models.detectors.psg_v4 import _stage
 from openpsg_tpu_torch.models.relation.head_v2 import RelationHeadV2
 from openpsg_tpu_torch.models.relation.head_v4 import assemble_pair_instructions, right_align
 from openpsg_tpu_torch.models.segmenter.openseed import normalize_image
+from openpsg_tpu_torch.parallel.comm import all_reduce
+from openpsg_tpu_torch.parallel.mesh import axis_group
 from openpsg_tpu_torch.train import losses
 
 
@@ -166,10 +179,12 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-             state: Dict[str, Any]) -> torch.Tensor:
+             state: Dict[str, Any], norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place → the global norm of
-        ``grads`` (before clipping)."""
-        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        ``grads`` (before clipping); ``norm``, where given, is that norm
+        (a sharded trainer sums it over its ranks)."""
+        if norm is None:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
         clip = not bool(norm < self.max_norm)
         count = int(state["count"])
         t = count + 1
@@ -246,12 +261,26 @@ class MasterTrainer:
         for prm in self.params.values():
             prm.grad = None
 
-    def _take_grads(self) -> Dict[str, torch.Tensor]:
-        """The accumulated gradients, widened to float32 (zeros where none
-        reached a tensor), and the tensors' ``grad`` cleared."""
+    def _fold_grads(self, acc: Dict[str, torch.Tensor]) -> None:
+        """Move the gradients of tensors narrower than float32 into float32
+        sums ``acc`` and clear them, so that per-image gradients add in
+        float32 (as the dp all-reduce adds the ranks'), not in the
+        tensor's own dtype."""
+        for n, prm in self.params.items():
+            if prm.grad is not None and prm.dtype != torch.float32:
+                g = prm.grad.float()
+                acc[n] = acc[n].add_(g) if n in acc else g
+                prm.grad = None
+
+    def _take_grads(self, acc: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The accumulated gradients (``acc``'s float32 sums, else each
+        tensor's ``grad``), widened to float32 (zeros where none reached a
+        tensor), and the tensors' ``grad`` cleared."""
+        acc = acc or {}
         grads = {}
         for n, prm in self.params.items():
-            g = prm.grad
+            g = acc.get(n, prm.grad)
             grads[n] = torch.zeros_like(self.master[n]) if g is None else g.float()
             prm.grad = None
         return grads
@@ -261,28 +290,87 @@ class MasterTrainer:
         """Per-image loss thunks (each → a dict of scalars) → each image's
         total over the ``is_loss`` keys backpropagated as it comes, scaled
         by 1/B, which sums to the gradient of the per-loss means over the
-        batch (the JAX step's vmap then mean) → (the means plus ``loss``,
-        their total; {name: float32 gradient}).  The backward's wall time
-        is added to ``stage``."""
+        batch (the JAX step's vmap then mean; the images' gradients add in
+        float32) → (the means plus ``loss``, their total; {name: float32
+        gradient}).  The backward's wall time is added to ``stage``."""
         self._zero_grads()
         B = len(per_image)
         sums: Dict[str, torch.Tensor] = {}
+        acc: Dict[str, torch.Tensor] = {}
         for losses in per_image:
             out = losses()
             with _stage(stage_times, stage, device):
                 (sum(v for k, v in out.items() if is_loss(k)) / B).backward()
+                if B > 1:
+                    self._fold_grads(acc)
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + v.detach().float() / B
         sums["loss"] = sum(v for k, v in sums.items() if is_loss(k))
-        return sums, self._take_grads()
+        return sums, self._take_grads(acc)
 
     def _update(self, optimizer: AdamW, grads, opt_state, stage_times, device) -> torch.Tensor:
         """One optimizer step on the masters, written into the modules →
         the gradients' global norm."""
         with _stage(stage_times, "optimizer", device):
-            norm = optimizer.step(self.master, grads, opt_state)
+            norm = optimizer.step(self.master, grads, opt_state, norm=self._global_norm(grads))
             self._sync_modules()
         return norm
+
+    # ------------------------------------------------------------ parallel
+    mesh = None
+
+    def _split_of(self, name: str) -> Tuple[bool, bool]:
+        """(split over tp, a pipeline stage's layer) for a trainable name."""
+        return False, False
+
+    def whole(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors from this rank's parts of {trainable name: tensor}
+        (masters or AdamW moments), for a checkpoint.  Every rank calls it."""
+        return tensors
+
+    def localize(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's parts of whole {trainable name: tensor} (a restored
+        checkpoint)."""
+        return tensors
+
+    def _reduce_dp(self, loss_dict, grads):
+        """Mean of the losses and the gradients over the mesh's dp ranks
+        (one flat all-reduce each); unchanged without a mesh."""
+        g = axis_group(self.mesh, "dp")
+        if g is None:
+            return loss_dict, grads
+        group, _, n = g
+        names = list(grads)
+        flat = all_reduce(torch.cat([grads[k].reshape(-1) for k in names]), "sum", group) / n
+        out, i = {}, 0
+        for k in names:
+            out[k] = flat[i:i + grads[k].numel()].view_as(grads[k])
+            i += grads[k].numel()
+        keys = list(loss_dict)
+        vals = all_reduce(torch.stack([torch.as_tensor(loss_dict[k], dtype=torch.float32,
+                                                       device=flat.device) for k in keys]),
+                          "sum", group) / n
+        return dict(zip(keys, vals.unbind())), out
+
+    def _global_norm(self, grads) -> Optional[torch.Tensor]:
+        """The norm over the whole model's gradients: squares of tp-split
+        tensors summed over tp, of stage layers over pp, replicated tensors
+        counted once.  None (the optimizer's own) without a mesh."""
+        if self.mesh is None:
+            return None
+        dev = next(iter(grads.values())).device
+        parts = [torch.zeros((), device=dev) for _ in range(4)]
+        for name, g in grads.items():
+            tp_split, layer = self._split_of(name)
+            parts[2 * layer + tp_split] = parts[2 * layer + tp_split] + (g * g).sum()
+        rep, tp_only, layer_rep, layer_tp = parts
+        tpg, ppg = axis_group(self.mesh, "tp"), axis_group(self.mesh, "pp")
+        if tpg is not None:
+            tp_only, layer_tp = all_reduce(torch.stack([tp_only, layer_tp]), "sum", tpg[0])
+        layer_sum = layer_rep + layer_tp
+        if ppg is not None:
+            layer_sum = all_reduce(layer_sum, "sum", ppg[0])
+        return torch.sqrt(rep + tp_only + layer_sum)
 
 
 class _GroupTrainer(MasterTrainer):
@@ -293,13 +381,14 @@ class _GroupTrainer(MasterTrainer):
     GROUPS: Tuple[str, ...] = ()
     BACKWARD_STAGE = "head"     # the stage the backward's time is added to
 
-    def __init__(self, pipeline, trainable: Sequence[str]):
+    def __init__(self, pipeline, trainable: Sequence[str], mesh=None):
         unknown = set(trainable) - set(self.GROUPS)
         if unknown:
             raise ValueError(f"cannot train {sorted(unknown)}: trainable groups are "
                              f"{self.GROUPS}")
         self.pipeline = pipeline
         self.trainable = tuple(trainable)
+        self.mesh = mesh
         groups = pipeline.param_groups()
         self._init_masters({f"{g}.{n}": p for g in self.trainable for n, p in groups[g].items()})
 
@@ -336,7 +425,7 @@ class _GroupTrainer(MasterTrainer):
         (the total) and ``grad_norm``.  ``stage_times``: wall ms per stage
         (:meth:`loss_single`'s, and ``optimizer``), the card synchronized
         around each."""
-        loss_dict, grads = self.gradients(batch, stage_times)
+        loss_dict, grads = self._reduce_dp(*self.gradients(batch, stage_times))
         loss_dict["grad_norm"] = self._update(optimizer, grads, opt_state, stage_times,
                                               self.pipeline.device)
         return loss_dict
@@ -357,9 +446,40 @@ class V4Trainer(_GroupTrainer):
     BACKWARD_STAGE = "llm_fwd_bwd"
 
     def __init__(self, pipeline, trainable: Sequence[str] = ("head",),
-                 rel_cls_loss_weight: float = 50.0):
-        super().__init__(pipeline, trainable)
+                 rel_cls_loss_weight: float = 50.0, mesh=None):
+        """``mesh``: average over its dp ranks (each passes its own rows
+        to :meth:`train_step`); build the trainer after sharding the LLM."""
+        super().__init__(pipeline, trainable, mesh)
         self.rel_cls_loss_weight = rel_cls_loss_weight
+
+    def _split_of(self, name: str) -> Tuple[bool, bool]:
+        llm = self.pipeline.llm
+        if not name.startswith("llm."):
+            return False, False
+        inner = name[4:]
+        return (inner in getattr(llm, "_tp_specs", {}),
+                llm.core.stage_range is not None and inner.startswith("core.layers."))
+
+    def _llm_split(self) -> bool:
+        llm = self.pipeline.llm
+        return "llm" in self.trainable and bool(
+            getattr(llm, "_tp_specs", None) or llm.core.stage_range is not None)
+
+    def whole(self, tensors):
+        if not self._llm_split():
+            return tensors
+        from openpsg_tpu_torch.parallel.sharding import full_tensors
+
+        return full_tensors(self.pipeline.llm, tensors, prefix="llm.")
+
+    def localize(self, tensors):
+        if not self._llm_split():
+            return tensors
+        from openpsg_tpu_torch.parallel.sharding import local_part
+
+        llm = self.pipeline.llm
+        return {k: local_part(llm, k[4:], v) if k.startswith("llm.") else v
+                for k, v in tensors.items() if k in self.master}
 
     # ------------------------------------------------------------ one image
     def loss_single(self, b: TrainBatch, stage_times: Optional[Dict[str, float]] = None
@@ -368,6 +488,24 @@ class V4Trainer(_GroupTrainer):
         ``stage_times`` (a dict) receives wall ms of ``segmenter``,
         ``head`` and the LLM forward (``llm_fwd_bwd``), synchronizing the
         card around each."""
+        out, emb, mask, pos, lab_ids, lab_mask = self.pre_llm(b, stage_times)
+        with _stage(stage_times, "llm_fwd_bwd", self.pipeline.device):
+            logits, _ = self.pipeline.llm(input_embeds=emb, attention_mask=mask,
+                                          positions=pos, remat=True)
+            out["rel_llm_loss"] = self.rel_llm_loss(logits, lab_ids, lab_mask, b.llm_valid)
+        return out
+
+    @classmethod
+    def rel_llm_loss(cls, logits, lab_ids, lab_mask, llm_valid):
+        """Mean of the per-pair CE over the image's valid LLM pairs."""
+        per_pair = cls.llm_pair_ce(logits, lab_ids, lab_mask)
+        lv = llm_valid.float()
+        return (per_pair * lv).sum(-1) / lv.sum(-1).clamp(min=1.0)
+
+    def pre_llm(self, b: TrainBatch, stage_times: Optional[Dict[str, float]] = None):
+        """One image up to the LLM: segmenter, head, the relation-cls losses
+        and the teacher-forcing inputs → (losses, embeds [T, Lf, D], mask
+        [T, Lf], positions [T, Lf], label ids, label mask)."""
         p = self.pipeline
         c = p.cfg
         M, R = c.head.max_objects_padded, c.head.num_relation_classes
@@ -418,14 +556,51 @@ class V4Trainer(_GroupTrainer):
             full_mask = torch.cat([torch.ones(T, Rq, dtype=torch.bool, device=dev),
                                    p_mask, lab_mask], dim=1)
             positions = (torch.cumsum(full_mask.to(torch.int32), dim=1) - 1).clamp(min=0)
+        return out, full_embeds, full_mask, positions, lab_ids, lab_mask
 
-        with _stage(stage_times, "llm_fwd_bwd", dev):
-            logits, _ = p.llm(input_embeds=full_embeds, attention_mask=full_mask,
-                              positions=positions, remat=True)
-            per_pair = self.llm_pair_ce(logits, lab_ids, lab_mask)
-            lv = b.llm_valid.float()
-            out["rel_llm_loss"] = (per_pair * lv).sum() / lv.sum().clamp(min=1.0)
-        return out
+    def make_pipelined_train_step(self, optimizer: AdamW, mesh, n_micro: Optional[int] = None):
+        """The train step whose LLM teacher forcing runs as ONE GPipe call
+        (``parallel.pipeline.pipelined_llama_logits``) over a ("dp", "pp"[,
+        "tp"]) mesh, the LLM cut by ``shard_pipeline`` before the trainer
+        was built.  The per-image pre-LLM part runs as in :meth:`train_step`;
+        the B·T sequences of this rank's images go through the pipeline
+        together, then one backward (pipelined backprop) and the dp-mean
+        update.  Numerically equal to :meth:`train_step`.  ``n_micro``
+        defaults to pp where it divides the rank's B·T, else 1.
+
+        → ``step(batch, opt_state, stage_times=None)`` → the metrics of
+        :meth:`train_step`."""
+        from openpsg_tpu_torch.parallel.pipeline import pipelined_llama_logits
+
+        self.mesh = mesh
+        pp = axis_group(mesh, "pp")[2]
+
+        def step(batch, opt_state, stage_times=None):
+            p = self.pipeline
+            self._zero_grads()
+            B = batch.image.shape[0]
+            pres = [self.pre_llm(type(batch)(*(t[i] for t in batch)), stage_times)
+                    for i in range(B)]
+            outs, emb, mask, pos, lab_ids, lab_mask = zip(*pres)
+            T, Lf = mask[0].shape
+            nm = n_micro or (pp if (B * T) % pp == 0 else 1)
+            with _stage(stage_times, "llm_fwd_bwd", p.device):
+                logits = pipelined_llama_logits(p.llm, torch.cat(emb), torch.cat(mask),
+                                                torch.cat(pos), mesh, nm, remat=True)
+                rel_llm = self.rel_llm_loss(logits.reshape(B, T, Lf, -1), torch.stack(lab_ids),
+                                            torch.stack(lab_mask), batch.llm_valid)
+                loss_dict = {k: sum(o[k] for o in outs) / B for k in outs[0]}
+                loss_dict["rel_llm_loss"] = rel_llm.mean()
+                total = sum(loss_dict.values())
+                total.backward()
+            loss_dict = {k: v.detach().float() for k, v in loss_dict.items()}
+            loss_dict["loss"] = total.detach().float()
+            loss_dict, grads = self._reduce_dp(loss_dict, self._take_grads())
+            loss_dict["grad_norm"] = self._update(optimizer, grads, opt_state, stage_times,
+                                                  p.device)
+            return loss_dict
+
+        return step
 
     @staticmethod
     def llm_pair_ce(logits, lab_ids, lab_mask):
@@ -474,8 +649,9 @@ class M2FTrainer(_GroupTrainer):
 
     GROUPS = m2f.TRAINABLE_GROUPS
 
-    def __init__(self, pipeline, trainable: Sequence[str] = m2f.TRAINABLE_GROUPS):
-        super().__init__(pipeline, trainable)
+    def __init__(self, pipeline, trainable: Sequence[str] = m2f.TRAINABLE_GROUPS, mesh=None):
+        """``mesh``: average over its dp ranks (each passes its own rows)."""
+        super().__init__(pipeline, trainable, mesh)
 
     @staticmethod
     def is_loss(key: str) -> bool:

@@ -330,3 +330,25 @@ def test_bf16_head_keeps_float32_masters():
     tr._sync_modules()
     assert not torch.equal(tr.master[name], before)
     assert torch.equal(tr.params[name], tr.master[name].to(torch.bfloat16))
+
+
+def test_bf16_head_gradients_add_in_float32():
+    """A bf16 head's per-image gradients add in float32, not in the bf16
+    ``grad``: the B=2 step's gradients equal the mean of the two images'
+    own, as a dp=2 step all-reduces them."""
+    from openpsg_tpu_torch.tools.dryrun_multichip import _batch
+
+    cfg = PSGv4Config.tiny_test()
+    cfg = dataclasses.replace(cfg, head=dataclasses.replace(
+        cfg.head, dtype=torch.bfloat16,
+        qformer=dataclasses.replace(cfg.head.qformer, dtype=torch.bfloat16)))
+    model = PSGv4(cfg, seed=0, device="cpu")
+    arrays = _batch(model, np.random.default_rng(2), 2)
+    tr = trainer.V4Trainer(model)
+    _, both = tr.gradients(trainer.TrainBatch.from_numpy(arrays, "cpu"))
+    each = [tr.gradients(trainer.TrainBatch.from_numpy(
+        {k: v[i:i + 1] for k, v in arrays.items()}, "cpu"))[1] for i in range(2)]
+    assert tr.params["head.relation_query"].dtype == torch.bfloat16
+    for name, g in both.items():
+        assert g.dtype == torch.float32
+        assert torch.equal(g, (each[0][name] + each[1][name]) / 2), name

@@ -166,8 +166,14 @@ def test_config_dump_round_trip_and_data_root(tmp_path, monkeypatch):
 
 
 def test_tool_refusals_and_card_default(tmp_path, monkeypatch, capsys):
+    # the port's parallelism runs under torch.distributed.run: other
+    # launchers are refused, and --launcher pytorch needs its ranks
     with pytest.raises(SystemExit, match="parallelism"):
-        train_tool.main([TINY, "--launcher", "pytorch"])
+        train_tool.main([TINY, "--launcher", "mpi"])
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
+        train_tool.main([TINY, "--launcher", "pytorch", "--device", "cpu"])
     args = train_tool.parse_args([TINY, "--gpus", "1", "--gpu-ids", "0", "1"])
     assert args.gpus == 1 and args.gpu_ids == [0, 1]
     assert "deprecated" in capsys.readouterr().err

@@ -159,7 +159,14 @@ Phases, each fatal on failure:
      (``parallel.launch.spawn``): the losses, the dp-averaged head
      gradients and the updated head equal a single-process step at B=2
      within TOL_TRAIN_LOSS, TOL_TRAIN_GRAD and TOL_TRAIN_UPDATE (the
-     largest gradient difference is printed too); peak memory per rank.
+     largest gradient difference is printed too); peak memory per rank;
+     (d) before (c), in that NCCL world: ``tools.serve.make_server`` with
+     ``--batch-size 2`` builds its dp mesh of 1 and serves phase 12a's
+     full-width int8 model: 4 PNGs posted at once, each record equal to
+     ``infer`` on the same image (launches counted as path ``serve_dp``);
+     then the tiny float32 Llama with a ``decouple_label_masks``
+     ``full_mask``, with and without a cache, card against CPU; and whether
+     ``tensorstore`` and ``msgpack`` (the JAX-file readers) import here.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -614,18 +621,18 @@ def main() -> int:
     selfcheck_root = tempfile.mkdtemp(prefix="chip_smoke_selfcheck_")
     try:
         learned = phase_training_family(torch, skv, gat, selfcheck_root)
-        phase_serving(torch, skv, gat, learned)
+        deploy = phase_serving(torch, skv, gat, learned)
     finally:
         shutil.rmtree(selfcheck_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # ---- 13. parallelism on the card
-    phase_parallel(torch, skv, gat, train_metrics)
+    phase_parallel(torch, skv, gat, train_metrics, deploy)
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
         for path in ("serve", "serve_learned", "predict", "pvsg", "openset", "infer_batch_tool",
-                     "infer_batch_dp", "pair_sharded"):
+                     "infer_batch_dp", "pair_sharded", "serve_dp"):
             assert path in k["launches_by_path"], (k["name"], path)
         k["launches"] = sum(k["launches_by_path"].values())
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2532,7 +2539,8 @@ def phase_serve_full(torch, skv, gat):
     warmed up; then 8 of phase 7's PNGs posted at once from 8 threads, 2
     identical posts at once, ``/healthz``; launch counts and the images the
     model computed (pads included) read around exactly those requests;
-    then one ``service.submit`` at trip budget 2 and one at None."""
+    then one ``service.submit`` at trip budget 2 and one at None.  → the
+    model, which phase 13d serves again."""
     import shutil
     import statistics
     import tempfile
@@ -2609,7 +2617,7 @@ def phase_serve_full(torch, skv, gat):
             latency_ms=lat, groups=sizes, computed_images=n, launches=launches,
             peak_gib=peak, warmup_seconds=warm, capped_trips=capped["decode_steps"],
             free_trips=free["decode_steps"])))
-        del model
+        return model
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2859,11 +2867,12 @@ def phase_openset(torch, skv, gat):
 def phase_serving(torch, skv, gat, learned):
     """Phase 12: serving, prediction, PVSG frames and the open-set selfcheck
     (:func:`phase_serve_full`, :func:`phase_serve_learned` on phase 11d's
-    result ``learned``, :func:`phase_pvsg`, :func:`phase_openset`)."""
+    result ``learned``, :func:`phase_pvsg`, :func:`phase_openset`).  → 12a's
+    full-width int8 model, for phase 13d."""
     t_phase = time.perf_counter()
     times = {}
     t0 = time.perf_counter()
-    phase_serve_full(torch, skv, gat)
+    deploy = phase_serve_full(torch, skv, gat)
     torch.cuda.empty_cache()
     times["a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2879,6 +2888,7 @@ def phase_serving(torch, skv, gat, learned):
     times["d"] = time.perf_counter() - t0
     log(f"[serve] phase 12 in {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"12{k} {v:.1f} s" for k, v in times.items()) + ")")
+    return deploy
 
 
 def compare_runs(torch, tag, a, b):
@@ -3141,9 +3151,10 @@ def rank_dp_step(cfg_path, ex):
                 peak=torch.cuda.max_memory_allocated())
 
 
-def phase_parallel(torch, skv, gat, train_metrics):
+def phase_parallel(torch, skv, gat, train_metrics, deploy):
     """Phase 13 (see the module docstring): the distributed entry points at
-    full width on one card."""
+    full width on one card; ``deploy`` is phase 12a's int8 model, served
+    again in 13d."""
     import shutil
     import tempfile
 
@@ -3299,16 +3310,17 @@ def phase_parallel(torch, skv, gat, train_metrics):
                 hook.remove()
             if head_err > TOL_F32:
                 raise AssertionError(f"pair-sharded head outputs differ by {head_err:.3g}")
+            log(f"[parallel] 13b make_pair_sharded_infer over an NCCL world of 1 (NP = 1024 "
+                f"pairs per rank): {len(imgs)} images in {t_sharded:.2f} s ({t_plain:.2f} s "
+                f"through infer after it), shared-KV launches {by_variant}; results equal "
+                f"infer; on 30 seeded objects per image ({n_valid} valid in all) the gathered "
+                f"head logits, visual tokens, top pairs and LLM prefix equal the unsplit "
+                f"head's (largest difference {head_err:.3g} of scale, tol {TOL_F32:g})")
+            phase_serve_dp(torch, skv, gat, deploy, root)
         finally:
             dist.destroy_process_group()
             for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
                 os.environ.pop(k, None)
-        log(f"[parallel] 13b make_pair_sharded_infer over an NCCL world of 1 (NP = 1024 pairs "
-            f"per rank): {len(imgs)} images in {t_sharded:.2f} s ({t_plain:.2f} s through infer "
-            f"after it), shared-KV launches {by_variant}; results equal infer; on 30 seeded "
-            f"objects per image ({n_valid} valid in all) the gathered head logits, visual "
-            f"tokens, top pairs and LLM prefix equal the unsplit head's (largest difference "
-            f"{head_err:.3g} of scale, tol {TOL_F32:g})")
 
         # 13c: one dp=2 step as 2 gloo ranks sharing cuda:0, against one
         # process at B=2 on the same weights and batch
@@ -3358,6 +3370,179 @@ def phase_parallel(torch, skv, gat, train_metrics):
         log(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_serve_dp(torch, skv, gat, model, root):
+    """Phase 13d: ``tools.serve`` over a dp mesh of the NCCL world of 1 that
+    13a-13b stand in (``make_server`` builds it: ``--batch-size 2``, no
+    micro-batch), serving phase 12a's full-width int8 model: 4 of 13a's PNGs
+    posted at once, twice.  The first round is the model as it stands (its
+    time is set beside 12a's); seeded random weights leave fusion no object
+    at this width, so the records are void.  The second round replaces the
+    fused objects with 30 seeded regions whose seed is the image's checksum
+    (at trip budget 2), so each record holds that image's objects.  Every
+    record equals ``infer`` of the same preprocessed image through
+    ``_record_for`` (relation scores within TOL_F32 absolute, the rest
+    exact), and the seeded records differ image by image; 2 hopper launches
+    per computed image, counted as path ``serve_dp``.  Then the port's tiny
+    float32 Llama fed a ``decouple_label_masks`` ``full_mask``, with and
+    without a cache, on the card against the CPU."""
+    import zlib
+
+    import numpy as np
+
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import serve
+
+    t_phase = time.perf_counter()
+    cfg = os.path.join(root, "deploy.py")
+    with open(cfg, "w", encoding="utf-8") as f:
+        f.write(f"_base_ = [{os.path.join(HERE, 'openpsg_tpu_torch/configs/psg/baseline_v4_ov.py')!r}]\n"
+                + TOOL_INT8)
+    paths = [os.path.join(root, f"{i}.png") for i in range(4)]
+    bodies = [open(p, "rb").read() for p in paths]
+    argv = ["--config", cfg, "--port", "0", "--single-bucket", "--batch-size", "2",
+            "--max-wait-ms", "1000"]
+    checksum, segment, fuse_select = [], model.segment, model.fuse_select
+
+    def seeded_segment(image):
+        checksum[:] = [zlib.crc32(image.cpu().numpy().tobytes())]
+        return segment(image)
+
+    def seeded_objects(seg, hw):
+        return synthetic_objects(model, seg, fuse_select(seg, hw), seed=checksum[0])
+
+    def infer_each(service, budget):
+        out = []
+        for body in bodies:
+            job = service._make_job(serve.decode_image(body))
+            out.append(serve._record_for(model.infer(job.ex["image"].astype(np.float32),
+                                                     job.ex["img_shape"], budget), job.ex, 0))
+        return out
+
+    rounds = {}
+    with served(argv, model) as (addr, service):
+        if service.mesh is None or dict(zip(service.mesh.mesh_dim_names,
+                                            service.mesh.shape)) != {"dp": 1, "tp": 1}:
+            raise AssertionError(f"make_server built no dp mesh of 1: {service.mesh}")
+        groups, batch = [], model.infer_batch
+        model.infer_batch = lambda imgs, *a, **k: groups.append(len(imgs)) or batch(imgs, *a, **k)
+        try:
+            with computed_images(model) as sizes:
+                fca.reset_launches()
+                mg.sparse_row_gather.launches = 0
+                rounds["fused"] = post_concurrently(addr, bodies)
+                model.segment, model.fuse_select = seeded_segment, seeded_objects
+                service.trip_budget = 2
+                rounds["seeded"] = post_concurrently(addr, bodies)
+                launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat,
+                                                                   "serve_dp")
+        finally:
+            for k in ("infer_batch", "segment", "fuse_select"):
+                model.__dict__.pop(k, None)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = {"fused": infer_each(service, None)}
+            model.segment, model.fuse_select = seeded_segment, seeded_objects
+            try:
+                want["seeded"] = infer_each(service, 2)
+            finally:
+                del model.segment, model.fuse_select
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, (out, _) in rounds.items():
+        for i, ((status, rec), w) in enumerate(zip(out, want[name])):
+            if status != 200:
+                raise AssertionError(f"serve_dp {name} request {i}: status {status}: {rec}")
+            rec = dict(rec)
+            rec.pop("latency_ms")
+            if any(rec[k] != w[k] for k in w if k != "relation_scores") or set(rec) != set(w):
+                raise AssertionError(f"serve_dp {name} request {i}: record differs from infer's")
+            if rec["relation_scores"]:
+                worst = max(worst, float(np.abs(np.subtract(rec["relation_scores"],
+                                                            w["relation_scores"])).max()))
+    if worst > TOL_F32:
+        raise AssertionError(f"serve_dp relation scores differ by {worst:.3g}")
+    seeded = want["seeded"]
+    n_obj = [len(r["segments_info"]) for r in seeded]
+    if min(n_obj) == 0 or len({json.dumps(r["segments_info"]) for r in seeded}) != len(seeded):
+        raise AssertionError(f"serve_dp seeded records hold {n_obj} objects and do not differ "
+                             "image by image")
+    n = sum(sizes)
+    check_variants(by_variant, n)
+    if gathers:
+        raise AssertionError(f"sparse_row_gather launched {gathers} times in serve_dp")
+    if groups != [2, 2, 2, 2]:
+        raise AssertionError(f"serve_dp ran groups {groups} through infer_batch, not [2] * 4")
+    (out, wall), (out2, wall2) = rounds["fused"], rounds["seeded"]
+    lat = [r["latency_ms"] for _, r in out]
+    log(f"[parallel] 13d tools.serve over a dp mesh of 1 NCCL rank (--batch-size 2, full-width "
+        f"int8 model of 12a): 4 concurrent requests in {wall:.2f} s ({4 / wall:.3f} "
+        f"requests/s, {wall / 4 * 1e3:.1f} ms per request), latency_ms p50 "
+        f"{statistics.median(lat):.1f}, max {max(lat):.1f}; with 30 seeded objects per image "
+        f"at trip budget 2: {wall2:.2f} s ({wall2 / 4 * 1e3:.1f} ms per request), objects "
+        f"{n_obj}, relations {[len(r['relations']) for r in seeded]}; infer_batch groups over "
+        f"the mesh {groups} ({n} images computed); records equal infer's on the same images "
+        f"({plain_s:.2f} s for the 8 through infer; relation scores within {worst:.3g}); "
+        f"flash_shared_kv_cross_attn launches {by_variant}, sparse_row_gather {gathers}")
+    llama_full_mask(torch)
+    log(f"[parallel] 13d in {time.perf_counter() - t_phase:.1f} s")
+
+
+def llama_full_mask(torch):
+    """The port's tiny float32 Llama fed ``decouple_label_masks``'s
+    ``full_mask`` (and its positions), with and without a cache of the
+    whole length, on the card against the CPU on the same weights: logits
+    within TOL_F32 of their scale.  Also logs whether the JAX-file readers'
+    packages (tensorstore, msgpack) import here."""
+    import importlib.util
+
+    import numpy as np
+
+    from openpsg_tpu_torch.models.llm.llama import (
+        LlamaConfig,
+        LlamaWithEmbeddings,
+        decouple_label_masks,
+    )
+
+    torch.manual_seed(0)
+    cfg = LlamaConfig.tiny_test(vocab_size=64)
+    cpu = LlamaWithEmbeddings(cfg).eval()
+    card = LlamaWithEmbeddings(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda()
+    ids = np.array([[7, 8, 50, 20, 51, 22, 51, 0], [9, 8, 50, 21, 23, 51, 24, 25]])
+    full, pos = decouple_label_masks(ids, 50, 51, decouple_positions=True)
+    attn = ids != 0
+    worst = 0.0
+    for cached in (False, True):
+        outs = {}
+        for dev, m in (("cpu", cpu), ("cuda", card)):
+            t = lambda a, dt=None: torch.as_tensor(a, device=dev, dtype=dt)
+            with torch.no_grad():
+                if not cached:
+                    outs[dev] = m(token_ids=t(ids, torch.long), attention_mask=t(attn),
+                                  positions=t(pos, torch.long), full_mask=t(full))[0].cpu()
+                    continue
+                hd = cfg.dim // cfg.n_heads
+                shape = (cfg.n_layers, 2, ids.shape[1], cfg.n_kv_heads, hd)
+                cache = (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+                parts = [m(token_ids=t(ids[:, lo:hi], torch.long), attention_mask=t(attn),
+                           positions=t(pos[:, lo:hi], torch.long), cache=cache,
+                           cache_index=lo, key_positions=t(pos, torch.long),
+                           full_mask=t(full[:, lo:hi]))[0].cpu() for lo, hi in ((0, 3), (3, 8))]
+                outs[dev] = torch.cat(parts, 1)
+        err = float((outs["cuda"] - outs["cpu"]).abs().max()) / max(
+            1.0, float(outs["cpu"].abs().max()))
+        worst = max(worst, err)
+    if worst > TOL_F32:
+        raise AssertionError(f"Llama with a decoupled full_mask: card vs CPU {worst:.3g}")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("tensorstore", "msgpack")}
+    log(f"[parallel] 13d tiny Llama with a decouple_label_masks full_mask (no cache, and a "
+        f"cache filled in 2 blocks), card vs CPU: logits within {worst:.3g} of scale (tol "
+        f"{TOL_F32:g}); the JAX-file readers' packages import here: "
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items()))
 
 
 if __name__ == "__main__":

@@ -221,8 +221,11 @@ class PSGMask2FormerRelation:
         ``load_from``, configs/psg/baseline_r50.py:3), each tensor cast to
         the module's dtype: a raw mmdet checkpoint (``backbone.*`` and
         ``panoptic_head.*`` keys, or those under ``"state_dict"``),
-        converted on the fly; or the ``segmenter.pt`` the
-        ``convert_mask2former`` tool writes (the port's parameter names)."""
+        converted on the fly; the ``segmenter.pt`` the
+        ``convert_mask2former`` tool writes (the port's parameter names); or
+        the ``segmenter.msgpack`` the JAX package's
+        ``tools/convert_mask2former.py`` writes (a flax ``{"params": ...}``
+        tree, read without JAX)."""
         from openpsg_tpu_torch.bridge import load_part, scan_prefixes
         from openpsg_tpu_torch.models.llm.weight_convert import to_numpy
         from openpsg_tpu_torch.models.segmenter.weight_convert import (
@@ -230,6 +233,12 @@ class PSGMask2FormerRelation:
             load_checkpoint,
         )
 
+        scanned = scan_prefixes(self.segmenter, "segmenter")
+        if path.endswith(".msgpack"):
+            from openpsg_tpu_torch.utils.jax_files import read_flax_msgpack
+
+            load_part(self.segmenter, "segmenter", read_flax_msgpack(path), scanned=scanned)
+            return
         state = load_checkpoint(path)
         if isinstance(state, dict) and isinstance(state.get("state_dict"), dict):
             state = state["state_dict"]
@@ -238,8 +247,7 @@ class PSGMask2FormerRelation:
             return
         state = {k: to_numpy(v) for k, v in state.items() if hasattr(v, "shape")}
         params = convert_mask2former(state, self.cfg.segmenter)
-        load_part(self.segmenter, "segmenter", {"params": params},
-                  scanned=scan_prefixes(self.segmenter, "segmenter"))
+        load_part(self.segmenter, "segmenter", {"params": params}, scanned=scanned)
 
     # ------------------------------------------------------------ stages
     @torch.no_grad()

@@ -282,9 +282,11 @@ class PSGv4:
         openseed_relation_v2.py:37-41), each tensor cast to the module's
         dtype.  ``path`` is a raw reference checkpoint (``backbone.*`` and
         ``sem_seg_head.*`` keys, or those under ``"model"``), converted on
-        the fly with the conversion report printed; or the ``segmenter.pt``
+        the fly with the conversion report printed; the ``segmenter.pt``
         the ``convert_openseed`` tool writes (the port's own parameter
-        names)."""
+        names); or the ``segmenter.msgpack`` the JAX package's
+        ``tools/convert_openseed.py`` writes (a flax ``{"params": ...}``
+        tree, read without JAX)."""
         from openpsg_tpu_torch.bridge import load_part
         from openpsg_tpu_torch.models.llm.weight_convert import to_numpy
         from openpsg_tpu_torch.models.segmenter.weight_convert import (
@@ -293,6 +295,11 @@ class PSGv4:
             load_checkpoint,
         )
 
+        if path.endswith(".msgpack"):
+            from openpsg_tpu_torch.utils.jax_files import read_flax_msgpack
+
+            load_part(self.segmenter, "segmenter", read_flax_msgpack(path))
+            return
         state = load_checkpoint(path)
         if not any(k.startswith("sem_seg_head.") for k in state):
             self.segmenter.load_state_dict(state, strict=True)

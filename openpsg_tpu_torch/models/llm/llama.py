@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -343,7 +344,7 @@ class Llama(nn.Module):
     def forward(self, input_embeds, attention_mask, positions,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache_index: int = 0, key_positions=None, last_logit_only=False,
-                remat: bool = False, return_hidden: bool = False):
+                remat: bool = False, return_hidden: bool = False, full_mask=None):
         """input_embeds [B, L, D]; attention_mask [B, S] over keys;
         positions [B, L].  Without ``cache``: causal attention among the L
         tokens, returns (logits, (k, v) stacked [n_layers, B, L, kv, hd]).
@@ -358,7 +359,14 @@ class Llama(nn.Module):
         returns (logits, None).
 
         ``return_hidden``: the final-normed hidden states [B, L, D] in place
-        of the logits."""
+        of the logits.
+
+        ``full_mask`` (bool, True where a query may see a key) replaces the
+        causal rule, as :func:`decouple_label_masks` builds it: [B, L, L]
+        without a cache (and-ed with ``attention_mask``); [B, L, S] over the
+        whole cache with one, its slice ``[:, :, cache_index:cache_index +
+        L]`` the current block.  A tp-sharded model takes the same mask on
+        every rank."""
         c = self.c
         if remat and cache is not None:
             raise ValueError("remat is the training forward: it takes no cache")
@@ -370,7 +378,9 @@ class Llama(nn.Module):
         dev = input_embeds.device
         if cache is None:
             kp = positions if key_positions is None else key_positions
-            if c.causal:
+            if full_mask is not None:
+                mask_cur = full_mask.to(dev).bool() & attention_mask[:, None, :]
+            elif c.causal:
                 mask_cur = (kp[:, None, :] <= positions[:, :, None]) & attention_mask[:, None, :]
             else:
                 mask_cur = attention_mask[:, None, :].expand(B, L, attention_mask.shape[1])
@@ -380,7 +390,10 @@ class Llama(nn.Module):
             if key_positions is None:
                 raise ValueError("the cache path needs key_positions")
             S = cache[0].shape[2]
-            if c.causal:
+            if full_mask is not None:
+                base = full_mask.to(dev).bool()
+                mask_cur = base[:, :, cache_index:cache_index + L]
+            elif c.causal:
                 base = key_positions[:, None, :] <= positions[:, :, None]
                 mask_cur = positions[:, None, :] <= positions[:, :, None]
             else:
@@ -448,7 +461,46 @@ class LlamaWithEmbeddings(nn.Module):
         e = F.embedding(local.clamp(0, w.shape[0] - 1), w) * inside[..., None].to(w.dtype)
         return reduce_from_group(e, tp.group)
 
-    def forward(self, *, input_embeds=None, token_ids=None, **kw):
+    def forward(self, *, input_embeds=None, token_ids=None, full_mask=None, **kw):
+        """Embeds ``token_ids`` unless ``input_embeds`` is given, then runs
+        the core (:meth:`Llama.forward`'s keywords, ``full_mask`` among
+        them)."""
         if input_embeds is None:
             input_embeds = self.embed(token_ids)
-        return self.core(input_embeds, **kw)
+        return self.core(input_embeds, full_mask=full_mask, **kw)
+
+
+def decouple_label_masks(token_ids, answer_id: int, delimiter_id: int,
+                         decouple_positions: bool = False):
+    """Host copy of the JAX ``decouple_label_masks`` (the reference's
+    ``decouple_label_tok_embeds``, kings_sgg/models/commons/llama.py:226-288).
+    The answer region after the first ``answer_id`` of the last sample holds
+    delimiter-separated label segments; each attends causally within itself
+    and to the whole prompt, never to an earlier segment, so the labels are
+    predicted independently given the prompt.  With ``decouple_positions``
+    each segment's RoPE positions restart at the answer position.
+
+    token_ids [B, L] → (mask [B, L, L] bool, to feed as ``full_mask``;
+    positions [B, L] int32).  The reference's ids are 526 ("are") and 29892
+    (","); pass the tokenizer's own."""
+    ids = np.asarray(token_ids)
+    B, L = ids.shape
+    mask = np.tile(np.tril(np.ones((L, L), bool))[None], (B, 1, 1))
+    positions = np.tile(np.arange(L, dtype=np.int32)[None], (B, 1))
+    hits = np.nonzero(ids[-1] == answer_id)[0]
+    if not len(hits):
+        return mask, positions
+    a = int(hits[0])
+    for b in range(B):
+        prev = a
+        for d in np.nonzero(ids[b] == delimiter_id)[0]:
+            end = int(d) + 1   # a delimiter sees its own segment
+            mask[b, prev:end, a + 1:prev] = False
+            if decouple_positions:
+                positions[b, prev:end] = a + np.arange(end - prev)
+            prev = end
+        if prev < L:           # the segment after the last delimiter
+            mask[b, prev:, a + 1:prev] = False
+            if decouple_positions:
+                positions[b, prev:] = a + np.arange(L - prev)
+    return mask, positions

@@ -60,10 +60,17 @@ def gather_objects(obj: Any, group=None) -> List[Any]:
     return out
 
 
+class BlockFailed(RuntimeError):
+    """A rank's block of a :func:`dp_map` raised: every rank of the axis
+    raises this, naming each rank that failed."""
+
+
 def dp_map(fn, n: int, mesh, axis: str = "dp") -> List[Any]:
     """``[fn(i) for i in range(n)]`` split over the mesh ``axis``: each rank
     runs its contiguous block of the indices (JAX's ``P("dp")`` split; n
-    must divide the axis) and every rank gets every result, in order."""
+    must divide the axis) and every rank gets every result, in order.
+    Where a block raises, every rank still gathers, then raises
+    :class:`BlockFailed`: the ranks stay in step for their next call."""
     from openpsg_tpu_torch.parallel.mesh import axis_group
 
     g = axis_group(mesh, axis)
@@ -73,8 +80,15 @@ def dp_map(fn, n: int, mesh, axis: str = "dp") -> List[Any]:
     if n % size:
         raise ValueError(f"{n} items do not split over {axis}={size}")
     per = n // size
-    mine = [fn(i) for i in range(r * per, (r + 1) * per)]
-    return [res for part in gather_objects(mine, group) for res in part]
+    try:
+        mine, err, own = [fn(i) for i in range(r * per, (r + 1) * per)], None, None
+    except Exception as e:  # gathered, so every rank leaves the call together
+        mine, err, own = None, f"{type(e).__name__}: {e}", e
+    parts = gather_objects((mine, err), group)
+    failed = [f"rank {k} of {axis}: {e}" for k, (_, e) in enumerate(parts) if e is not None]
+    if failed:
+        raise BlockFailed("; ".join(failed)) from own
+    return [res for part, _ in parts for res in part]
 
 
 class _CopyTo(torch.autograd.Function):

@@ -46,18 +46,19 @@ def parse_args(argv=None):
 
 
 def restore_head(model, ckpt_dir: str) -> int:
-    """Load a part checkpoint into ``model`` with its ``head`` group as the
-    only target, as the JAX ``predict.py`` and ``pvsg/infer_video.py`` do
-    (orbax ``StandardRestore({"head": ...})``): the checkpoint must hold
-    exactly the head; orbax refuses a checkpoint with any other group, and
-    so does this → the restored step."""
+    """Load a part checkpoint (the port's or the JAX package's) into
+    ``model`` with its ``head`` group as the only target, as the JAX
+    ``predict.py`` and ``pvsg/infer_video.py`` do (orbax
+    ``StandardRestore({"head": ...})``): the checkpoint must hold exactly
+    the head; orbax refuses a checkpoint with any other group, and so does
+    this → the restored step."""
     import torch
 
-    from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
+    from openpsg_tpu_torch.train.checkpoint import read_trainable
 
     if not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"--checkpoint {ckpt_dir}: no such directory")
-    params, _, _, step = PartCheckpointer(ckpt_dir).restore()
+    params, _, step = read_trainable(model, ckpt_dir)
     head = model.param_groups()["head"]
     want = {f"head.{n}" for n in head}
     if set(params) != want:

@@ -20,6 +20,32 @@ requests:
   * every bucket is run once at startup at 1 and ``--batch-size`` images
     (``--no-warmup`` skips), so no request pays for first-call set-up.
 
+Under ``python -m torch.distributed.run`` (``RANK`` and ``WORLD_SIZE``
+set) every rank joins the process group (:func:`init_distributed`) and
+builds the model on its own device.  With ``--batch-size`` > 1, no
+``--micro-batch`` and the batch a multiple of the world size, the server
+builds a dp mesh over every rank (the JAX ``tools/serve.py`` builds one
+over the devices on the same condition), and a group of more than one
+image runs ``infer_batch(mesh=)``: each rank its block of the padded
+group, the results gathered to every rank.  Rank 0 alone binds HTTP, holds
+the queue and answers; a group of one runs ``infer`` on rank 0 alone, as
+in JAX.  The other ranks follow (:class:`Follower`): for every group that
+runs over the mesh, rank 0 first sends them (images, valid sizes, trip
+budget), so every rank enters the same collectives in the same order;
+``stop()`` sends them a stop message, after which every rank returns.
+
+The control messages travel on a gloo group of their own whose timeout is
+:data:`CONTROL_TIMEOUT_S` (a week): a follower waits there between
+requests, for as long as the server stays idle, where the process group's
+own collective timeout (``parallel.mesh.DEFAULT_TIMEOUT_S``, 60 s) would
+end it.  The collectives inside a group's ``infer_batch`` keep the short
+timeout: there every rank is working.  A group whose block raises on any
+rank fails on every rank (``dp_map`` gathers the error): rank 0 returns it
+to the group's callers, and every rank goes on serving.  A collective that
+fails (its timeout, a lost rank) ends the follower, and with it the
+launched server.  Without a launcher no process group is formed and no mesh
+is built.
+
 ``--decode-trip-budget N`` caps a PSG v4 request's LLM decode at N trips.
 It is an argument of every call (``InferenceService.trip_budget``), so
 changing it rebuilds nothing; 0 means zero trips (the JAX package reads 0
@@ -45,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import datetime
 import json
 import os
 import queue
@@ -55,8 +82,10 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from openpsg_tpu_torch.data.preprocess import resize_nearest
+from openpsg_tpu_torch.parallel.comm import BlockFailed
 from openpsg_tpu_torch.utils.image_io import PNG_SIGNATURE, _cv2, decode_png, encode_palette_png
 from openpsg_tpu_torch.utils.submission import paint_panoptic_indexed, relations_1indexed
 
@@ -91,6 +120,36 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+# how long a follower may wait for rank 0's next message: an idle server
+# sends none
+CONTROL_TIMEOUT_S = 7 * 24 * 3600
+
+
+def _control_group(mesh):
+    """The control channel of a mesh that spans more than this process (a
+    gloo group of every rank, long timeout; made collectively on every
+    rank), else None."""
+    if mesh is None or not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return dist.new_group(backend="gloo",
+                          timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+
+
+def _broadcast(msg, group):
+    box = [msg]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def wants_dp_mesh(batch_size: int, micro_batch: bool, world: int) -> bool:
+    """The JAX server's rule (tools/serve.py:288-297) with the launched
+    world in place of the device count: a dp mesh when a group can hold
+    more than one image, the micro-batch program is not asked for, and the
+    batch splits evenly over the ranks.  The port builds it only inside a
+    process group, and then at a world of one too (the identity split)."""
+    return batch_size > 1 and not micro_batch and batch_size % world == 0
+
+
 class _Job:
     __slots__ = ("ex", "bucket", "event", "result", "error", "cancelled")
 
@@ -104,16 +163,21 @@ class _Job:
 
 class InferenceService:
     """Owns the model and the device loop; ``submit`` is thread-safe.
-    ``trip_budget`` (PSG v4) is read at every call."""
+    ``trip_budget`` (PSG v4) is read at every call.  ``mesh``: a dp mesh
+    for ``infer_batch``; where it spans other ranks, they must run a
+    :class:`Follower` (its constructor and this one make the control
+    channel together)."""
 
-    def __init__(self, model, preproc, batch_size=1, max_wait_s=0.01, micro_batch=False,
-                 trip_budget=None):
+    def __init__(self, model, preproc, batch_size=1, max_wait_s=0.01, mesh=None,
+                 micro_batch=False, trip_budget=None):
         self.model = model
         self.preproc = preproc
         self.batch_size = max(batch_size, 1)
         self.max_wait_s = max_wait_s
+        self.mesh = mesh
         self.micro_batch = micro_batch
         self.trip_budget = trip_budget
+        self.control = _control_group(mesh)
         self.queue: "queue.Queue[_Job]" = queue.Queue()
         self._stop = threading.Event()
         self.worker = threading.Thread(target=self._loop, daemon=True)
@@ -140,6 +204,13 @@ class InferenceService:
 
     # -- device side -----------------------------------------------------
     def _loop(self):
+        try:
+            self._serve_queue()
+        finally:
+            if self.control is not None:   # release the followers
+                _broadcast(("stop",), self.control)
+
+    def _serve_queue(self):
         with torch.inference_mode():
             while not self._stop.is_set():
                 try:
@@ -183,7 +254,9 @@ class InferenceService:
             if self.micro_batch:
                 results = self.model.infer_microbatch(imgs, hws, **kw)
             else:
-                results = self.model.infer_batch(imgs, hws, **kw)
+                if self.control is not None:
+                    _broadcast(("batch", imgs, hws, kw), self.control)
+                results = self.model.infer_batch(imgs, hws, mesh=self.mesh, **kw)
             for job, res in zip(jobs, results):
                 job.result = res
                 job.event.set()
@@ -213,8 +286,41 @@ class InferenceService:
                       flush=True)
 
     def stop(self):
+        """End the device loop after its current group; the followers are
+        sent their stop message as it ends."""
         self._stop.set()
-        self.worker.join(timeout=5)
+        self.worker.join(timeout=None if self.control is not None else 5)
+
+
+class Follower:
+    """A rank other than 0 of a server whose dp mesh spans ranks: runs its
+    block of every group rank 0 sends through ``infer_batch(mesh=)`` until
+    the stop message.  The constructor makes the control channel together
+    with rank 0's :class:`InferenceService`."""
+
+    def __init__(self, model, mesh):
+        self.model = model
+        self.mesh = mesh
+        self.control = _control_group(mesh)
+        self.groups = 0
+
+    def run(self) -> int:
+        """Follow rank 0 until it stops → the number of groups run (failed
+        ones too)."""
+        if self.control is None:
+            return 0
+        with torch.inference_mode():
+            while True:
+                msg = _broadcast(None, self.control)
+                if msg[0] == "stop":
+                    return self.groups
+                _, imgs, hws, kw = msg
+                self.groups += 1
+                try:
+                    self.model.infer_batch(imgs, hws, mesh=self.mesh, **kw)
+                except BlockFailed as e:   # rank 0 answers its callers with it
+                    print(f"[rank {dist.get_rank()}] group {self.groups} failed: {e}",
+                          flush=True)
 
 
 def decode_image(raw: bytes):
@@ -252,8 +358,10 @@ def _record_for(res, ex, seed: int):
 
 def make_server(args, model=None):
     """→ (``ThreadingHTTPServer``, :class:`InferenceService`), not yet
-    serving: the caller runs ``serve_forever`` (tests bind port 0).
-    ``model``: a ready model in place of the one the config builds."""
+    serving: the caller runs ``serve_forever`` (tests bind port 0).  On a
+    launched rank other than 0 → (None, :class:`Follower`), whose ``run``
+    the caller calls.  ``model``: a ready model in place of the one the
+    config builds."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from openpsg_tpu_torch import resolve_device
@@ -261,11 +369,23 @@ def make_server(args, model=None):
     from openpsg_tpu_torch.core.config import Config
     from openpsg_tpu_torch.data.preprocess import Preprocessor, aspect_buckets
     from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4
+    from openpsg_tpu_torch.parallel.mesh import init_distributed, launched, make_mesh
 
     cfg = Config.fromfile(args.config)
+    rank, world, mesh = 0, 1, None
+    if launched():
+        rank, world, device = init_distributed("pytorch", device=args.device)
+        if wants_dp_mesh(args.batch_size, args.micro_batch, world):
+            mesh = make_mesh(dp=world, tp=1)
+            print(f"[rank {rank}] dp mesh over {world} ranks: --batch-size "
+                  f"{args.batch_size} runs {args.batch_size // world} images per rank")
+        elif rank == 0 and world > 1:
+            print(f"no dp mesh (--batch-size {args.batch_size}, --micro-batch "
+                  f"{args.micro_batch}, {world} ranks): ranks 1-{world - 1} stay idle")
+    else:
+        device = resolve_device(args.device)
     if model is None:
-        model = build_detector_from_config(cfg, seed=args.seed,
-                                           device=resolve_device(args.device))
+        model = build_detector_from_config(cfg, seed=args.seed, device=device)
     if args.checkpoint:
         from openpsg_tpu_torch.train.checkpoint import restore_trainable_for_inference
 
@@ -281,6 +401,8 @@ def make_server(args, model=None):
         print(f"decode trip budget: {args.decode_trip_budget} (an argument of every call)")
     if args.micro_batch and not is_v4:
         raise SystemExit("--micro-batch is a PSG v4 path")
+    if rank != 0:
+        return None, Follower(model, mesh)
 
     H, _ = model._model_hw()
     scale = (min(args.img_scale), min(args.img_scale))
@@ -289,7 +411,7 @@ def make_server(args, model=None):
     preproc = Preprocessor(scale=scale,
                            buckets=None if args.single_bucket else aspect_buckets(scale))
     service = InferenceService(model, preproc, batch_size=args.batch_size,
-                               max_wait_s=args.max_wait_ms / 1e3,
+                               max_wait_s=args.max_wait_ms / 1e3, mesh=mesh,
                                micro_batch=args.micro_batch,
                                trip_budget=args.decode_trip_budget)
 
@@ -328,7 +450,7 @@ def make_server(args, model=None):
                 rec = _record_for(res, ex, seed)
                 rec["latency_ms"] = round((time.time() - t0) * 1e3, 1)
                 self._json(200, rec)
-            except Exception as e:  # pragma: no cover - defensive
+            except Exception as e:  # a failed group reaches its callers
                 self._json(500, dict(error=repr(e)))
 
         def log_message(self, fmt, *a):   # quiet access log
@@ -341,6 +463,12 @@ def make_server(args, model=None):
 def main(argv=None, model=None):
     args = parse_args(argv)
     httpd, service = make_server(args, model=model)
+    if httpd is None:   # a following rank: returns once rank 0 stops
+        try:
+            service.run()
+        except KeyboardInterrupt:
+            pass
+        return
     if not args.no_warmup:
         service.warmup()
     host, port = httpd.server_address[:2]

@@ -10,8 +10,16 @@ own sources at load time.  Layout, one directory per step::
 
 written into a temporary directory and renamed, so a step directory is
 complete or absent.  The ``max_keep`` newest steps are kept.  Files load
-with ``torch.load(weights_only=True)``.  The JAX package's orbax
-checkpoints are a format of their own, which this module does not read.
+with ``torch.load(weights_only=True)``.
+
+The JAX package's part checkpoints (orbax: ``<dir>/<N>/params/`` holding
+the trainable groups' flax trees, ``<dir>/<N>/meta/metadata`` JSON) are
+read too, without JAX (:class:`OrbaxPartReader`, through ``tensorstore``):
+:func:`read_trainable` tells the two layouts apart and gives either's
+trainable groups under the port's parameter names, so every tool's
+``--checkpoint`` takes both.  Only their parameters are read; a JAX
+optimizer state is not restored (training resumes from the port's own
+checkpoints only).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from openpsg_tpu_torch.models.detectors import mask2former_relation as m2f
 from openpsg_tpu_torch.models.detectors.psg_v4 import GROUPS
 
 _STEP_DIR = re.compile(r"step_(\d+)")
+_ORBAX_STEP = re.compile(r"\d+")
 
 
 class PartCheckpointer:
@@ -99,6 +108,102 @@ class PartCheckpointer:
         """Nothing is held open between calls; kept for the JAX surface."""
 
 
+class OrbaxPartReader:
+    """Read-only view of a JAX ``PartCheckpointer`` directory (orbax):
+    steps, their meta and their ``params`` trees (numpy leaves)."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def all_steps(self) -> List[int]:
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(n) for n in os.listdir(self.directory) if _ORBAX_STEP.fullmatch(n)
+                      and os.path.isfile(os.path.join(self.directory, n, "params", "_METADATA")))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def meta(self, step: int) -> Dict[str, Any]:
+        path = os.path.join(self._path(step), "meta", "metadata")
+        if not os.path.isfile(path):
+            return {}
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
+
+    def step_for_epoch(self, epoch: int) -> Optional[int]:
+        """As :meth:`PartCheckpointer.step_for_epoch` (the JAX ``step_for_epoch``)."""
+        for step in self.all_steps():
+            if self.meta(step).get("epoch") == epoch:
+                return step
+        return None
+
+    def params(self, step: int) -> Dict[str, Any]:
+        """The ``params`` item of ``step``: {group: flax tree}."""
+        from openpsg_tpu_torch.utils.jax_files import read_orbax_tree
+
+        return read_orbax_tree(os.path.join(self._path(step), "params"))
+
+
+def open_checkpoint(ckpt_dir: str):
+    """The reader of a checkpoint directory, told by its layout: an
+    :class:`OrbaxPartReader` where it holds JAX orbax steps and no
+    ``step_<N>`` directory, else a :class:`PartCheckpointer`."""
+    orbax = OrbaxPartReader(ckpt_dir)
+    if orbax.all_steps() and not PartCheckpointer(ckpt_dir).all_steps():
+        return orbax
+    return PartCheckpointer(ckpt_dir)
+
+
+def port_params(model, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX part checkpoint's {group: tree} → {"group.name": tensor}, the
+    port's names (:mod:`openpsg_tpu_torch.bridge`): a module group's flax
+    ``{"params": ...}`` tree mapped as ``bridge.load_part`` maps it, an
+    array group (``class_embeds``, ``object_cls_embed``) taken whole."""
+    import numpy as np
+
+    from openpsg_tpu_torch.bridge import part_state_dict, scan_prefixes
+
+    groups = model.param_groups()
+    unknown = sorted(set(tree) - set(groups))
+    if unknown:
+        raise KeyError(f"the checkpoint holds groups {unknown} that the model lacks")
+    family = isinstance(model, m2f.PSGMask2FormerRelation)
+    out = {}
+    for g, sub in tree.items():
+        if isinstance(sub, dict):
+            module = getattr(model, g)
+            scanned = scan_prefixes(module, g) if family else None
+            for n, arr in part_state_dict(g, sub, scanned).items():
+                out[f"{g}.{n}"] = torch.from_numpy(arr)
+        else:
+            out[f"{g}.{g}"] = torch.from_numpy(np.array(sub, np.float32))
+    return out
+
+
+def read_trainable(model, ckpt_dir: str, epoch: Optional[int] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any], int]:
+    """The trainable groups of a part checkpoint, the port's or the JAX
+    package's → ({"group.name": tensor on the CPU}, meta, step).  ``epoch``
+    (1-indexed) is mapped to its step through each step's meta; default the
+    latest step."""
+    ckpt = open_checkpoint(ckpt_dir)
+    step = None
+    if epoch is not None:
+        step = ckpt.step_for_epoch(epoch)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint for epoch {epoch} in {ckpt_dir}")
+    if isinstance(ckpt, PartCheckpointer):
+        params, _, meta, step = ckpt.restore(step=step)
+        return params, meta, step
+    step = ckpt.latest_step() if step is None else step
+    return port_params(model, ckpt.params(step)), ckpt.meta(step), step
+
+
 def _model_cfg(cfg):
     return cfg.model if hasattr(cfg, "model") else cfg.get("model", {})
 
@@ -140,17 +245,12 @@ def trainable_groups(cfg) -> Tuple[str, ...]:
 
 @torch.no_grad()
 def restore_trainable_for_inference(model, cfg, ckpt_dir: str, epoch: Optional[int] = None):
-    """Load a part checkpoint's trainable groups into ``model`` in place,
-    each tensor cast to its module's working dtype.  ``epoch`` (1-indexed)
-    is mapped to its step through the saved meta; default the latest
-    step.  → (step, meta)."""
-    ckpt = PartCheckpointer(ckpt_dir)
-    step = None
-    if epoch is not None:
-        step = ckpt.step_for_epoch(epoch)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint for epoch {epoch} in {ckpt_dir}")
-    params, _, meta, step = ckpt.restore(step=step)
+    """Load a part checkpoint's trainable groups, the port's or the JAX
+    package's (:func:`read_trainable`), into ``model`` in place, each tensor
+    cast to its module's working dtype.  ``epoch`` (1-indexed) is mapped to
+    its step through the saved meta; default the latest step.
+    → (step, meta)."""
+    params, meta, step = read_trainable(model, ckpt_dir, epoch)
     groups = model.param_groups()
     want = {f"{g}.{n}" for g in trainable_groups(cfg) for n in groups[g]}
     if set(params) != want:
@@ -159,5 +259,8 @@ def restore_trainable_for_inference(model, cfg, ckpt_dir: str, epoch: Optional[i
                        f"{sorted(set(params) ^ want)[:5]}")
     for name, value in params.items():
         g, n = name.split(".", 1)
+        if tuple(value.shape) != tuple(groups[g][n].shape):
+            raise ValueError(f"{name}: checkpoint {tuple(value.shape)} vs model "
+                             f"{tuple(groups[g][n].shape)}")
         groups[g][n].copy_(value)
     return step, meta

@@ -17,6 +17,10 @@ from openpsg_tpu.models.llm.llama import quantize_llama
 from openpsg_tpu_torch import bridge
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 
 def _copy(tree):
     return {k: _copy(v) if isinstance(v, dict) else v for k, v in tree.items()}

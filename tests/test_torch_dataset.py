@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from fixtures import make_fixture
 from openpsg_tpu import native
@@ -17,6 +18,10 @@ from openpsg_tpu.data.psg_dataset import PSGDataset as JaxPSGDataset
 from openpsg_tpu_torch.data.preprocess import Preprocessor
 from openpsg_tpu_torch.data.psg_dataset import PSGDataset
 from openpsg_tpu_torch.utils.panoptic import extract_masks_downsampled
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

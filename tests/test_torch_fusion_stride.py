@@ -16,6 +16,10 @@ from openpsg_tpu.models.detectors.psg_v4 import PSGv4Config as JaxPSGv4Config
 from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = 1e-5
 _np = lambda tree: jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 

@@ -20,6 +20,10 @@ import torch
 from openpsg_tpu_torch.bridge import load_part, scan_prefixes
 from openpsg_tpu_torch.models.common import init_params
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -8,8 +8,13 @@ float32 outputs at atol = rtol = 1e-4, lookups and texts exactly.
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_heads_v123 import _f, bridged, close, rng_inputs
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 # ---------------------------------------------------------------- head v2
 V2_CASES = {

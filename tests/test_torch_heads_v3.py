@@ -16,6 +16,10 @@ from openpsg_tpu_torch.bridge import load_part, scan_prefixes
 from openpsg_tpu_torch.models.common import init_params
 from tests.test_torch_heads_v123 import _f, bridged, close, rng_inputs
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 
 V3_CASES = {
     "closed_causal": dict(),

@@ -27,6 +27,10 @@ from openpsg_tpu_torch.data import preprocess
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4Config
 from openpsg_tpu_torch.utils import image_io, panoptic, profiling, submission
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_CFGS = os.path.join(REPO, "openpsg_tpu_torch", "configs", "psg")
 INT8_TPU = "tpu = dict(llm_int8=True, act_int8=True, enc_points_per_level=[2, 2, 2, 4])\n"

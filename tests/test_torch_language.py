@@ -22,6 +22,10 @@ from openpsg_tpu_torch.data.vocab import OBJECT_CLASSES
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 from openpsg_tpu_torch.models.segmenter.language import TextEncoder, encode_names
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = 1e-5   # float32 on both sides; summation order and erf differ
 NAMES = list(OBJECT_CLASSES) + [
     "A Class Name Longer Than Thirty-Two Bytes, Cut There", "Crème Brûlée", ""]

@@ -35,6 +35,10 @@ from openpsg_tpu_torch.models.llm.llama import (
     rope,
 )
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 STEPS = 8
 

@@ -6,8 +6,13 @@ at atol = rtol = 1e-4.
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_heads_v123 import _f, bridged, close
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 # ---------------------------------------------------------------- commons
 @pytest.mark.parametrize("mode", ["attention", "einsum", "einsum_v1", "einsum_v2"])

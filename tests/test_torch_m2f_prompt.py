@@ -33,6 +33,10 @@ from tests.test_torch_m2f_relation import (
     run_case,
 )
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def prompt_setup(tmp_path_factory):

@@ -28,6 +28,10 @@ from openpsg_tpu_torch.core.config import Config
 from openpsg_tpu_torch.models.detectors.mask2former_relation import PSGMask2FormerRelation
 from openpsg_tpu_torch.tools import infer
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_CFGS = os.path.join(REPO, "openpsg_tpu_torch", "configs", "psg")
 FAMILY_CFGS = ["baseline_r50.py", "baseline_r50_prompt.py", "baseline_swin_b.py",

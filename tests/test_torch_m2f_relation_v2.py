@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.data.text_kv import TextKVStore
@@ -22,6 +23,10 @@ from openpsg_tpu_torch.models.detectors.mask2former_relation import (
 )
 from openpsg_tpu_torch.models.relation.head_v2 import EXPERT_ORDER, HeadV2Config
 from tests.test_torch_m2f_relation import _tree, assert_same_result, gt_objects
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 T = 16   # the tiny text width
 

@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.core import builder
@@ -29,6 +30,10 @@ from tests.test_torch_m2f_relation import (
     gt_objects,
     run_case,
 )
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

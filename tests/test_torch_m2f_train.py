@@ -37,6 +37,10 @@ from openpsg_tpu_torch.data.vocab import OBJECT_CLASSES, RELATION_CLASSES
 from openpsg_tpu_torch.models.detectors import mask2former_relation as m2f
 from openpsg_tpu_torch.train import checkpoint, trainer
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = ("v1", "v1_tokens2", "v2_text", "v3")
 

@@ -10,12 +10,17 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from openpsg_tpu_torch.models.segmenter.mask2former import (
     Mask2FormerConfig,
     Mask2FormerSegmenter,
 )
 from tests.test_torch_m2f_segmenter import _f, bridged, close
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("backbone", ["tiny_r50"])

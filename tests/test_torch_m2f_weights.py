@@ -36,6 +36,10 @@ from openpsg_tpu_torch.utils.synthetic_weights import (
     synthetic_relation_v1_state,
 )
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_CFGS = os.path.join(REPO, "openpsg_tpu_torch", "configs", "psg")
 R = 56

@@ -25,6 +25,10 @@ from openpsg_tpu_torch.ops import mask_ops
 from openpsg_tpu_torch.ops import msda_gather
 from openpsg_tpu_torch.ops.deform_attn import level_samples, ms_deform_attn
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -16,10 +16,13 @@
   gradients (embeddings and every parameter) within 1e-4 of ``jax.grad``.
 
 Each spawn is one group of gloo ranks (``parallel.launch.spawn``, a
-``file://`` rendezvous under ``tmp_path``) running several cases.
+``file://`` rendezvous under ``tmp_path``) running several cases: one of 4
+ranks for the tp cases and the 4-rank pipeline cases, then one of 8, in a
+thread that starts before the JAX references are computed.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +42,10 @@ from openpsg_tpu_torch.bridge import jax_paths, part_state_dict
 from openpsg_tpu_torch.models.llm.llama import LlamaConfig, LlamaWithEmbeddings
 from openpsg_tpu_torch.parallel.launch import spawn
 from openpsg_tpu_torch.parallel.sharding import plan_shardings
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 STEPS = 4
 
@@ -128,11 +135,25 @@ def _save_port(params, path):
 
 
 @pytest.fixture(scope="module")
-def tp_case(tmp_path_factory):
+def ranks(tmp_path_factory):
+    """The tp and pipeline cases' inputs and bridged weights, and their rank
+    groups, started in a thread before the JAX references are computed: one
+    spawn of 4 ranks (the tp cases, then the 4-rank pipeline cases), then
+    one of 8.  ``result()`` waits → {world: per rank, the cases' results}."""
+    root = tmp_path_factory.mktemp("ranks")
+    out = {"tp": _tp_inputs(root), "pp": _pp_inputs(root)}
+    tasks = {4: out["tp"]["tasks"] + out["pp"]["tasks"][4], 8: out["pp"]["tasks"][8]}
+    def run():
+        return {world: spawn("torch_parallel_ranks:llm_suite", world, str(root / f"w{world}"),
+                             args=(group,), timeout_s=180) for world, group in tasks.items()}
+
+    out["result"] = ThreadPoolExecutor(1).submit(run).result
+    return out
+
+
+def _tp_inputs(root):
     """The tiny LLM (float32, int8 weight-only, int8 activations) bridged
-    into tp 2 and tp 4 rank groups (one spawn of 4 ranks), and the JAX
-    references."""
-    root = tmp_path_factory.mktemp("tp")
+    for tp 2 and tp 4 rank groups."""
     rng = np.random.default_rng(3)
     B, L = 3, 90                              # 270 prefill rows: act_int8 engages
     emb = rng.normal(size=(B, L, 64)).astype(np.float32)
@@ -144,36 +165,43 @@ def tp_case(tmp_path_factory):
                   ids=rng.integers(0, 32, (B, 7)))
     cfg = JaxCfg.tiny_test(vocab_size=32)
     model, params = _jax_llm(cfg, 7)
+    tasks, quantized = [], {}
+    for mode in ("f32", "int8", "act_int8"):
+        mp = params if mode == "f32" else jax_quantize(params)
+        quantized[mode] = mp
+        path = str(root / f"{mode}.pt")
+        _save_port(mp, path)
+        port_cfg = dataclasses.replace(LlamaConfig.tiny_test(vocab_size=32),
+                                       quant=mode != "f32", act_int8=mode == "act_int8")
+        for tp in (2, 4):
+            tasks.append(("llm_tp", (_cfg_kw(port_cfg), path, inputs, tp, STEPS, 31)))
+    return dict(inputs=inputs, cfg=cfg, model=model, params=quantized, tasks=tasks)
+
+
+@pytest.fixture(scope="module")
+def tp_case(ranks):
+    """The JAX references of the tp cases, and the ranks' results."""
+    tp = ranks["tp"]
+    emb, mask, pos = (tp["inputs"][k] for k in ("embeds", "mask", "positions"))
+    model, cfg, params = tp["model"], tp["cfg"], tp["params"]["f32"]
     apply = jax.jit(lambda p: model.apply(p, input_embeds=emb, attention_mask=mask,
                                           positions=pos)[0])
     want = {"logits": np.asarray(apply(params)),
-            "embed": np.asarray(model.apply(params, jnp.asarray(inputs["ids"]),
+            "embed": np.asarray(model.apply(params, jnp.asarray(tp["inputs"]["ids"]),
                                             method=lambda m, i: m.embed(i)))}
-    for tp in (2, 4):
-        with jax_make_mesh(dp=8 // tp, tp=tp):
-            want[f"logits_tp{tp}"] = np.asarray(apply(jax_shard(params, jax_make_mesh(
-                dp=8 // tp, tp=tp))))
-    tasks, port_cfgs = [], {}
-    for mode in ("f32", "int8", "act_int8"):
-        mcfg = cfg if mode == "f32" else dataclasses.replace(
-            cfg, quant=True, act_int8=mode == "act_int8")
-        mp = params if mode == "f32" else jax_quantize(params)
-        path = str(root / f"{mode}.pt")
-        _save_port(mp, path)
-        if mode != "f32":
-            qm = JaxLlama(mcfg)
-            toks, _, trips = jax.jit(lambda p, qm=qm: jax_greedy(
-                qm, p, jnp.asarray(emb), jnp.asarray(mask), STEPS, eos_id=31,
-                return_trips=True))(mp)
-            want[f"tokens_{mode}"] = np.asarray(toks)
-        port_cfgs[mode] = dataclasses.replace(
-            LlamaConfig.tiny_test(vocab_size=32), quant=mode != "f32",
-            act_int8=mode == "act_int8")
-        for tp in (2, 4):
-            tasks.append(("llm_tp", (_cfg_kw(port_cfgs[mode]), path, inputs, tp, STEPS, 31)))
-    got = spawn("torch_parallel_ranks:llm_suite", 4, str(root / "ranks"), args=(tasks,),
-                timeout_s=180)
-    return want, tasks, got
+    for n in (2, 4):
+        with jax_make_mesh(dp=8 // n, tp=n):
+            want[f"logits_tp{n}"] = np.asarray(apply(jax_shard(params, jax_make_mesh(
+                dp=8 // n, tp=n))))
+    for mode in ("int8", "act_int8"):
+        qm = JaxLlama(dataclasses.replace(cfg, quant=True, act_int8=mode == "act_int8"))
+        toks, _, trips = jax.jit(lambda p, qm=qm: jax_greedy(
+            qm, p, jnp.asarray(emb), jnp.asarray(mask), STEPS, eos_id=31,
+            return_trips=True))(tp["params"][mode])
+        want[f"tokens_{mode}"] = np.asarray(toks)
+    n = len(tp["tasks"])
+    got = [rank[:n] for rank in ranks["result"]()[4]]
+    return want, tp["tasks"], got
 
 
 def test_tp_forward_matches_jax(tp_case):
@@ -210,11 +238,17 @@ PP_CFG = dict(vocab_size=64, dim=32, n_layers=4, n_heads=4, n_kv_heads=2, ffn_hi
               max_seq_len=32)
 
 
-@pytest.fixture(scope="module")
-def pp_case(tmp_path_factory):
-    """The pipeline cases on 4 ranks (pp 4; pp 2 × dp 2; pp 2 × tp 2) and on
-    8 (dp 2 × pp 2 × tp 2), against the unsharded JAX forward and grads."""
-    root = tmp_path_factory.mktemp("pp")
+# (pp, dp, tp, n_micro, last_logit_only, remat, grads, int8) on 4 and on 8 ranks
+PP_CASES = {4: [(4, 1, 1, 4, False, True, True, False), (4, 1, 1, 1, False, False, False, False),
+                (4, 1, 1, 2, True, False, False, False), (2, 2, 1, 1, False, False, False, False),
+                (2, 2, 1, 2, False, True, True, False), (2, 1, 2, 2, False, False, True, False),
+                (2, 2, 1, 2, False, False, False, True)],
+            8: [(2, 2, 2, 2, False, True, True, False), (2, 2, 2, 2, False, False, False, True)]}
+
+
+def _pp_inputs(root):
+    """The pipeline cases' inputs, their float32 and int8 weights bridged,
+    and the tasks of each world."""
     rng = np.random.default_rng(5)
     B, L = 8, 10
     emb = rng.normal(size=(B, L, 32)).astype(np.float32)
@@ -231,13 +265,32 @@ def pp_case(tmp_path_factory):
             params, model = jax_quantize(params), JaxLlama(cfg)
         path = str(root / f"q{int(quant)}.pt")
         _save_port(params, path)
+        ref[quant] = dict(path=path, model=model, params=params,
+                          cfg=_cfg_kw(LlamaConfig(**PP_CFG, dtype=torch.float32, quant=quant)))
+    tasks = {world: [("llm_pipeline", (ref[q]["cfg"], ref[q]["path"], inputs, pp, dp, tp, nm,
+                                       last, remat, grads))
+                     for pp, dp, tp, nm, last, remat, grads, q in cases]
+             for world, cases in PP_CASES.items()}
+    return dict(inputs=inputs, ref=ref, tasks=tasks)
 
-        def loss(p, e):
+
+@pytest.fixture(scope="module")
+def pp_case(ranks):
+    """The pipeline cases on 4 ranks (pp 4; pp 2 × dp 2; pp 2 × tp 2) and on
+    8 (dp 2 × pp 2 × tp 2), against the unsharded JAX forward and grads."""
+    pp = ranks["pp"]
+    emb, mask, pos, tgt = (pp["inputs"][k] for k in ("embeds", "mask", "positions", "targets"))
+    pos = pos.astype(np.int32)
+    ref = {}
+    for quant, r in pp["ref"].items():
+        model, params = r["model"], r["params"]
+
+        def loss(p, e, model=model):
             lg = model.apply(p, input_embeds=e, attention_mask=mask, positions=pos)[0]
             lp = jnp.take_along_axis(jax.nn.log_softmax(lg), jnp.asarray(tgt)[..., None], -1)
             return -jnp.sum(lp) / tgt.size, lg
 
-        ref[quant] = dict(path=path)
+        ref[quant] = {}
         if quant:       # int8 weights take no gradient: logits only
             ref[quant]["logits"] = np.asarray(jax.jit(loss)(params, jnp.asarray(emb))[1])
         else:
@@ -245,22 +298,12 @@ def pp_case(tmp_path_factory):
                 params, jnp.asarray(emb))
             ref[quant].update(logits=np.asarray(lg), emb_grad=np.asarray(ge), grads=part_state_dict(
                 "llm", jax.tree_util.tree_map(np.asarray, g)))
-        ref[quant].update(
-            cfg=_cfg_kw(LlamaConfig(**PP_CFG, dtype=torch.float32, quant=quant)))
-    # (pp, dp, tp, n_micro, last_logit_only, remat, grads, int8)
-    cases4 = [(4, 1, 1, 4, False, True, True, False), (4, 1, 1, 1, False, False, False, False),
-              (4, 1, 1, 2, True, False, False, False), (2, 2, 1, 1, False, False, False, False),
-              (2, 2, 1, 2, False, True, True, False), (2, 1, 2, 2, False, False, True, False),
-              (2, 2, 1, 2, False, False, False, True)]
-    cases8 = [(2, 2, 2, 2, False, True, True, False), (2, 2, 2, 2, False, False, False, True)]
+    got = ranks["result"]()
+    n_tp = len(ranks["tp"]["tasks"])
     out = []
-    for world, cases in ((4, cases4), (8, cases8)):
-        tasks = [("llm_pipeline", (ref[q]["cfg"], ref[q]["path"], inputs, pp, dp, tp, nm, last,
-                                   remat, grads)) for pp, dp, tp, nm, last, remat, grads, q
-                 in cases]
-        got = spawn("torch_parallel_ranks:llm_suite", world, str(root / f"w{world}"),
-                    args=(tasks,), timeout_s=180)
-        out += [(c, [rank[i] for rank in got]) for i, c in enumerate(cases)]
+    for world, cases in PP_CASES.items():
+        first = n_tp if world == 4 else 0
+        out += [(c, [rank[first + i] for rank in got[world]]) for i, c in enumerate(cases)]
     return ref, out
 
 

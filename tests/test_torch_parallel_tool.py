@@ -16,6 +16,7 @@ import os
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -25,6 +26,10 @@ import torch
 from fixtures import make_fixture
 from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.tools import infer
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")
@@ -45,9 +50,10 @@ def _logged(text):
 
 @pytest.fixture(scope="module")
 def tool_runs(tmp_path_factory, monkeypatch_module):
-    """The JAX tool with the 3D mesh on the 8 CPU devices, then the port's
+    """The JAX tool with the 3D mesh on the 8 CPU devices and the port's
     tool under torchrun with the same mesh (8 ranks) on the JAX tool's
-    initial weights."""
+    initial weights: torchrun starts as soon as the JAX tool has built its
+    model, and runs while the JAX tool compiles and trains."""
     import openpsg_tpu.core.builder as jax_builder
 
     root = tmp_path_factory.mktemp("tool")
@@ -64,37 +70,48 @@ def tool_runs(tmp_path_factory, monkeypatch_module):
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import train as jax_tool
 
-    # the JAX tool's initial weights, kept as it builds its model
-    built, real_build = [], jax_builder.build_detector_from_config
-
-    def build_and_keep(*a, **k):
-        jm = real_build(*a, **k)
-        built.append(jax.tree_util.tree_map(np.asarray, jax.device_get(jm.params)))
-        return jm
-
-    monkeypatch_module.setattr(jax_builder, "build_detector_from_config", build_and_keep)
-    monkeypatch_module.setattr(sys, "argv", ["train.py", str(cfgs["jax"]), "--work-dir",
-                                             str(root / "wd_jax"), "--max-steps", "2",
-                                             "--seed", "0"])
-    jax_tool.main()
-    jax_text = "".join(open(p).read() for p in sorted(glob.glob(str(root / "wd_jax" / "*.log"))))
-    assert "GPipe pp×tp" in jax_text
     from openpsg_tpu_torch.core.builder import build_detector_from_config
     from openpsg_tpu_torch.core.config import Config
 
-    assert len(built) == 1
-    model = build_detector_from_config(Config.fromfile(str(cfgs["3d"])), seed=0, device="cpu")
-    load_jax_params(model, built[0])
-    _save_v4(model, root / "v4.pt")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, TESTS]), OMP_NUM_THREADS="1")
     wd = root / "wd_3d"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            "8", os.path.join(TESTS, "torch_parallel_ranks.py"), str(root / "v4.pt"),
            str(root / "3d.stats"), str(cfgs["3d"]), "--work-dir", str(wd),
            "--max-steps", "2", "--seed", "0", "--device", "cpu", "--launcher", "pytorch"]
-    r = subprocess.run(cmd, cwd=str(root), env=env, capture_output=True, text=True,
-                       timeout=240)
-    assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
+
+    # the JAX tool's initial weights, kept as it builds its model; the
+    # port's run starts from them at once
+    built, real_build = [], jax_builder.build_detector_from_config
+
+    def build_and_keep(*a, **k):
+        jm = real_build(*a, **k)
+        built.append(jax.tree_util.tree_map(np.asarray, jax.device_get(jm.params)))
+        model = build_detector_from_config(Config.fromfile(str(cfgs["3d"])), seed=0,
+                                           device="cpu")
+        load_jax_params(model, built[0])
+        _save_v4(model, root / "v4.pt")
+        built.append((model, subprocess.Popen(cmd, cwd=str(root), env=env, text=True,
+                                              stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT)))
+        return jm
+
+    monkeypatch_module.setattr(jax_builder, "build_detector_from_config", build_and_keep)
+    monkeypatch_module.setattr(sys, "argv", ["train.py", str(cfgs["jax"]), "--work-dir",
+                                             str(root / "wd_jax"), "--max-steps", "2",
+                                             "--seed", "0"])
+    try:
+        jax_tool.main()
+    except BaseException:
+        if len(built) == 2:
+            built[1][1].kill()
+        raise
+    assert len(built) == 2
+    model, proc = built[1]
+    out, _ = proc.communicate(timeout=240)
+    jax_text = "".join(open(p).read() for p in sorted(glob.glob(str(root / "wd_jax" / "*.log"))))
+    assert "GPipe pp×tp" in jax_text
+    assert proc.returncode == 0, out[-4000:]
     text = "".join(open(p).read() for p in sorted(glob.glob(str(wd / "*.log"))))
     run = dict(wd=wd, text=text, stats=torch.load(root / "3d.stats", weights_only=False))
     return dict(root=root, ann=ann, cfgs=cfgs, jax=_logged(jax_text), run=run, model=model)
@@ -158,19 +175,26 @@ def test_scratch_recipe_tp_checkpoint_and_resume(tmp_path):
                    f"data = dict(train=dict(ann_file='{ann}', img_prefix='{tmp_path}', "
                    f"seg_prefix='{tmp_path}', pipeline=[]))\n"
                    "runner = dict(max_epochs=2)\nlog_config = dict(interval=1)\n")
-    one = [train_tool.main([str(cfg), "--work-dir", str(tmp_path / "wd1"), "--max-steps", steps,
-                            "--device", "cpu"] + extra)["metrics"][0]
-           for steps, extra in (("1", []), ("2", ["--auto-resume"]))]
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     wd = tmp_path / "wd2"
-    for steps, extra in (("1", []), ("2", ["--auto-resume"])):
-        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                            "--nproc_per_node", "2", "-m", "openpsg_tpu_torch.tools.train",
-                            str(cfg), "--work-dir", str(wd), "--max-steps", steps, "--device",
-                            "cpu", "--launcher", "pytorch"] + extra,
-                           cwd=str(tmp_path), env=env, capture_output=True, text=True,
-                           timeout=240)
-        assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
+
+    def under_torchrun():
+        runs = []
+        for steps, extra in (("1", []), ("2", ["--auto-resume"])):
+            runs.append(subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "2", "-m", "openpsg_tpu_torch.tools.train", str(cfg),
+                 "--work-dir", str(wd), "--max-steps", steps, "--device", "cpu",
+                 "--launcher", "pytorch"] + extra,
+                cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=240))
+            assert runs[-1].returncode == 0, (runs[-1].stdout + runs[-1].stderr)[-4000:]
+
+    with ThreadPoolExecutor(1) as pool:   # beside the one-process runs
+        torchrun = pool.submit(under_torchrun)
+        one = [train_tool.main([str(cfg), "--work-dir", str(tmp_path / "wd1"), "--max-steps",
+                                steps, "--device", "cpu"] + extra)["metrics"][0]
+               for steps, extra in (("1", []), ("2", ["--auto-resume"]))]
+    torchrun.result()
     text = "".join(open(p).read() for p in sorted(glob.glob(str(wd / "*.log"))))
     # the builder's tiny vocabulary (219) does not split over 2: the
     # embedding and lm_head stay whole, the 14 projections split

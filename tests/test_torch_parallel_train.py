@@ -11,9 +11,14 @@ import math
 
 import jax
 import pytest
+import torch
 
 from openpsg_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from openpsg_tpu_torch.tools import dryrun_multichip
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 
 # ---------------------------------------------------------------- dry run

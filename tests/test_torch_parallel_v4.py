@@ -1,6 +1,7 @@
 """PSG v4's data-parallel and pair-sharded inference and its dp × tp
 training step against the JAX package, on gloo ranks on the CPU (one JAX
-model for the module; one spawn of 4 ranks per program).
+model for the module; one spawn of 4 ranks runs every rank program, in a
+thread started with the module, while the JAX references compile).
 
 * PSG v4 ``infer_batch(mesh=)`` (each dp rank its block of 8 images):
   identical to the port's per-image ``infer`` (panoptic ids, relations,
@@ -31,6 +32,7 @@ The dry run and the train tool under ``torch.distributed.run`` are in
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +50,10 @@ from openpsg_tpu_torch.bridge import load_jax_params, part_state_dict
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 from openpsg_tpu_torch.parallel.launch import spawn
 from openpsg_tpu_torch.tools.dryrun_multichip import _batch
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8
@@ -92,20 +98,45 @@ def jax_v4(tmp_path_factory):
     return jp, model, root
 
 
+RECIPES = {"head": ("head",), "scratch": ("head", "llm")}
+
+
 @pytest.fixture(scope="module")
-def v4(jax_v4):
+def ranks(jax_v4):
+    """Every rank program of the module in one spawn of 4 ranks, started in
+    a thread: dp infer (v4), the family's infer_batch, and the dp × tp step
+    of each recipe.  → the inputs, and ``result()``, which waits for the
+    ranks → [per rank: the programs' results, in that order]."""
     jp, model, root = jax_v4
     rng = np.random.default_rng(6)
     imgs = rng.integers(0, 255, (N, 64, 64, 3)).astype(np.float32)
     hws = np.asarray([[64, 64]] * 4 + [[56, 60]] * 4, np.int32)
+    cfg = root / "tiny_r50.py"
+    cfg.write_text(f"_base_ = ['{REPO}/openpsg_tpu_torch/configs/psg/tiny_r50.py']\n"
+                   "model = dict(test_cfg=dict(object_mask_thr=0.0))\n")
+    # image 0 is the family tests' image, on which the tiny model keeps objects
+    fam_imgs = np.random.default_rng(0).integers(0, 256, (4, 64, 64, 3)).astype(np.float32)
+    fam_hws = np.asarray([[64, 64], [56, 60], [64, 64], [48, 64]], np.int32)
+    arrays = _batch(model, np.random.default_rng(4), 2)
+    tasks = [("v4_infer", (str(root / "v4.pt"), imgs, hws, dict(iou_thr=0.1))),
+             ("family_infer", (str(cfg), fam_imgs, fam_hws))]
+    tasks += [("v4_train", (str(root / "v4.pt"), arrays, keys, 2, 2)) for keys in RECIPES.values()]
+    ranks = ThreadPoolExecutor(1).submit(spawn, "torch_parallel_ranks:llm_suite", 4,
+                                         str(root / "ranks"), args=(tasks,), timeout_s=360)
+    return dict(imgs=imgs, hws=hws, arrays=arrays, result=ranks.result)
+
+
+@pytest.fixture(scope="module")
+def v4(jax_v4, ranks):
+    jp, model, root = jax_v4
+    imgs, hws = ranks["imgs"], ranks["hws"]
     # JAX's batch program on one image of each size (its cost grows with
     # the images), over a dp mesh of 2 of the 8 CPU devices
     jmesh = jax_make_mesh(dp=2, tp=1, devices=jax.devices()[:2])
     with jmesh:
         want = dict(zip(JAX_IMAGES, jp.infer_batch(imgs[list(JAX_IMAGES)],
                                                    hws[list(JAX_IMAGES)], mesh=jmesh)))
-    got = spawn("torch_parallel_ranks:v4_infer", 4, str(root / "ranks"),
-                args=(str(root / "v4.pt"), imgs, hws, dict(iou_thr=0.1)), timeout_s=240)
+    got = [rank[0] for rank in ranks["result"]()]
     return model, imgs, hws, want, got
 
 
@@ -141,15 +172,8 @@ def test_pair_sharded_matches_plain_infer(v4):
         _same_up_to_near_ties(rank["pair"], want[0], "pair-sharded vs JAX")
 
 
-def test_family_infer_batch_matches_per_image(tmp_path):
-    cfg = tmp_path / "tiny_r50.py"
-    cfg.write_text(f"_base_ = ['{REPO}/openpsg_tpu_torch/configs/psg/tiny_r50.py']\n"
-                   "model = dict(test_cfg=dict(object_mask_thr=0.0))\n")
-    # image 0 is the family tests' image, on which the tiny model keeps objects
-    imgs = np.random.default_rng(0).integers(0, 256, (4, 64, 64, 3)).astype(np.float32)
-    hws = np.asarray([[64, 64], [56, 60], [64, 64], [48, 64]], np.int32)
-    got = spawn("torch_parallel_ranks:family_infer", 4, str(tmp_path / "ranks"),
-                args=(str(cfg), imgs, hws), timeout_s=240)
+def test_family_infer_batch_matches_per_image(ranks):
+    got = [rank[1] for rank in ranks["result"]()]
     single = got[0]["single"]
     assert sum(len(s["rel_results"]["relation"]) for s in single) > 0
     for rank in got:
@@ -183,17 +207,13 @@ def _jax_step(jp, arrays, trainable_keys):
 
 
 @pytest.fixture(scope="module")
-def dp_tp(jax_v4):
-    jp, model, root = jax_v4
-    arrays = _batch(model, np.random.default_rng(4), 2)
-    recipes = {"head": ("head",), "scratch": ("head", "llm")}
-    tasks = [("v4_train", (str(root / "v4.pt"), arrays, keys, 2, 2)) for keys in recipes.values()]
-    got = spawn("torch_parallel_ranks:llm_suite", 4, str(root / "train_ranks"), args=(tasks,),
-                timeout_s=240)
-    loss, grads = _jax_step(jp, arrays, recipes["scratch"])
+def dp_tp(jax_v4, ranks):
+    jp = jax_v4[0]
+    loss, grads = _jax_step(jp, ranks["arrays"], RECIPES["scratch"])
     want = {name: (loss, float(optax.global_norm({k: grads[k] for k in keys})),
-                   {k: grads[k] for k in keys}) for name, keys in recipes.items()}
-    return recipes, want, got
+                   {k: grads[k] for k in keys}) for name, keys in RECIPES.items()}
+    got = [rank[2:] for rank in ranks["result"]()]
+    return RECIPES, want, got
 
 
 @pytest.mark.parametrize("recipe", ["head", "scratch"])

@@ -31,6 +31,10 @@ from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.tools import parse_predict, predict
 from openpsg_tpu_torch.tools.pvsg import extractor, infer_video
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HWS = [(64, 48), (48, 64), (64, 64)]   # the keep-ratio resize into 64² is the identity
 TOL = dict(rtol=0, atol=1e-5)          # relation scores: the same float32

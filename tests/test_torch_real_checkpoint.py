@@ -21,6 +21,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.environ.get("OPENPSG_REAL_CKPT", "")

@@ -16,6 +16,10 @@ from openpsg_tpu_torch.bridge import load_part
 from openpsg_tpu_torch.models.relation import head_v4 as T
 from openpsg_tpu_torch.models.relation.tokenizer import build_prompt_tokenizer
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -22,6 +22,10 @@ from openpsg_tpu_torch.models.llm.llama import QDense
 from openpsg_tpu_torch.train import trainer
 from tests.test_torch_train import _batch, _jax_grads
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = 1e-5
 _np = lambda tree: jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 

@@ -27,6 +27,10 @@ from openpsg_tpu_torch.models.segmenter.openseed import (
     normalize_image,
 )
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 PPL = [None, (1, 2, 4)]
 

@@ -38,6 +38,10 @@ from openpsg_tpu_torch.models.segmenter.openseed import OpenSeedSegmenter, Segme
 from openpsg_tpu_torch.train import segmenter_trainer as st
 from openpsg_tpu_torch.train.trainer import AdamW, make_cosine_schedule
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 H = 64
 T = lambda a: torch.from_numpy(np.asarray(a))
 

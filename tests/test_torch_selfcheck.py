@@ -19,6 +19,10 @@ from openpsg_tpu_torch.tools import selfcheck_e2e
 from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
 from openpsg_tpu_torch.utils.fixture import make_fixture
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 
 def _files(root):
     out = {}

@@ -15,6 +15,10 @@ import torch
 
 from openpsg_tpu_torch.tools import selfcheck_openset as so
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def res(tmp_path_factory):

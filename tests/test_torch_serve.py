@@ -19,6 +19,7 @@ import os
 import pathlib
 import sys
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import cv2
 import jax
@@ -28,6 +29,10 @@ import torch
 
 from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.tools import serve
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HWS = [(128, 96), (96, 128)]   # the keep-ratio resize into 128² is the identity
@@ -81,7 +86,11 @@ def setup(tmp_path_factory):
     paths = [str(root / "images" / f"{i}.jpg") for i in range(len(HWS))]
     bodies = [pathlib.Path(p).read_bytes() for p in paths]
     rgbs = [cv2.imread(p)[..., ::-1].copy() for p in paths]
-    return dict(tmp=tmp, jp=jp, model=model, cfg=cfg, bodies=bodies, rgbs=rgbs, jax={})
+    s = dict(tmp=tmp, jp=jp, model=model, cfg=cfg, bodies=bodies, rgbs=rgbs, jax={})
+    # the JAX service's records, in a thread while the port's server is tested
+    s["jax"] = ThreadPoolExecutor(1).submit(
+        lambda: {key: _jax_service_records(s, **kw) for key, kw in JAX_RECORDS.items()})
+    return s
 
 
 def _argv(cfg, *extra):
@@ -149,26 +158,35 @@ def _jax_service(s, **kw):
     return _jax_serve().InferenceService(s["jp"], Preprocessor(scale=(128, 128)), **kw)
 
 
-def jax_records(s, key, budget=None, micro_batch=False, n=len(HWS)):
+# the JAX records the tests hold the port to: per image, one micro-batch
+# group padded to 3, and image 0 at trip budgets 2 and 0
+JAX_RECORDS = {"per_image": {}, "mb": dict(micro_batch=True), "budget2": dict(budget=2, n=1),
+               "budget0": dict(budget=0, n=1)}
+
+
+def _jax_service_records(s, budget=None, micro_batch=False, n=len(HWS)):
     """The JAX service's records for the first ``n`` fixture images: one
     image per call, or (``micro_batch``) all in one group padded to 3."""
-    if key not in s["jax"]:
-        jax_serve = _jax_serve()
-        s["jp"].decode_trip_budget = budget
-        svc = _jax_service(s, batch_size=3 if micro_batch else 1, micro_batch=micro_batch)
-        try:
-            if micro_batch:
-                jobs = [svc._make_job(rgb) for rgb in s["rgbs"][:n]]
-                svc._run_group(jobs)
-                assert all(j.error is None for j in jobs)
-                pairs = [(j.result, j.ex) for j in jobs]
-            else:
-                pairs = [svc.submit(rgb) for rgb in s["rgbs"][:n]]
-        finally:
-            svc.stop()
-            s["jp"].decode_trip_budget = None
-        s["jax"][key] = [jax_serve._record_for(res, ex, 0) for res, ex in pairs]
-    return s["jax"][key]
+    jax_serve = _jax_serve()
+    s["jp"].decode_trip_budget = budget
+    svc = _jax_service(s, batch_size=3 if micro_batch else 1, micro_batch=micro_batch)
+    try:
+        if micro_batch:
+            jobs = [svc._make_job(rgb) for rgb in s["rgbs"][:n]]
+            svc._run_group(jobs)
+            assert all(j.error is None for j in jobs)
+            pairs = [(j.result, j.ex) for j in jobs]
+        else:
+            pairs = [svc.submit(rgb) for rgb in s["rgbs"][:n]]
+    finally:
+        svc.stop()
+        s["jp"].decode_trip_budget = None
+    return [jax_serve._record_for(res, ex, 0) for res, ex in pairs]
+
+
+def jax_records(s, key):
+    """The JAX records of :data:`JAX_RECORDS`' ``key`` (waits for them)."""
+    return s["jax"].result()[key]
 
 
 @pytest.fixture(scope="module")
@@ -225,7 +243,7 @@ def test_group_of_two_with_micro_batch_and_one_pad(setup):
         with group_sizes(setup["model"], "infer_microbatch") as sizes:
             out = _post_many(addr, setup["bodies"])
     assert sizes == [3]
-    for (status, got), rec, hw in zip(out, jax_records(setup, "mb", micro_batch=True), HWS):
+    for (status, got), rec, hw in zip(out, jax_records(setup, "mb"), HWS):
         assert status == 200
         assert_same_record(got, rec, hw)
 
@@ -251,7 +269,7 @@ def test_trip_budget_is_a_runtime_argument(setup, server):
         service.trip_budget = 2
         status, got = _request(addr, "POST", "/infer", setup["bodies"][0])
         assert status == 200
-        assert_same_record(got, jax_records(setup, "budget2", budget=2, n=1)[0], HWS[0])
+        assert_same_record(got, jax_records(setup, "budget2")[0], HWS[0])
         res, _ = service.submit(setup["rgbs"][0])
         assert res["decode_steps"] <= 2
         service.trip_budget = None
@@ -264,7 +282,7 @@ def test_trip_budget_is_a_runtime_argument(setup, server):
         assert res["decode_steps"] == 0
     finally:
         service.trip_budget = None
-    assert jax_records(setup, "budget0", budget=0, n=1) == jax_records(setup, "per_image")[:1]
+    assert jax_records(setup, "budget0") == jax_records(setup, "per_image")[:1]
 
 
 def test_healthz_and_unknown_paths(server):

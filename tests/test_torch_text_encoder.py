@@ -23,6 +23,10 @@ from openpsg_tpu_torch.models.commons.text_encoder import (
     load_tree,
 )
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 TOL = 1e-5
 B, L, P, DE = 3, 7, 5, 24
 

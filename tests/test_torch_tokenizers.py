@@ -12,6 +12,7 @@ import cv2
 import jax
 import numpy as np
 import pytest
+import torch
 
 from openpsg_tpu.models.commons import clip_bpe as jclip
 from openpsg_tpu.models.relation import sp_tokenizer as jsp
@@ -19,6 +20,10 @@ from openpsg_tpu_torch.models.commons import clip_bpe
 from openpsg_tpu_torch.models.relation import sp_tokenizer as sp
 from openpsg_tpu_torch.models.relation.sp_tokenizer import BPE, BYTE, CONTROL, NORMAL, SPACE
 from openpsg_tpu_torch.models.relation.sp_tokenizer import UNIGRAM, UNKNOWN
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 TOL = 1e-5
 HEAD3 = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL), ("</s>", 0.0, CONTROL)]

@@ -16,14 +16,20 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import cv2
 import jax
 import numpy as np
 import pytest
+import torch
 
 from openpsg_tpu_torch.bridge import load_jax_params
 from openpsg_tpu_torch.tools import eval_pq, grade, infer
+
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HWS = [(128, 96), (96, 128), (128, 128), (64, 128)]
@@ -78,12 +84,14 @@ def run_case(s, case):
         import openpsg_tpu.core.builder as jax_builder
 
         out_j, out_p = s["tmp"] / f"jax_{case}", s["tmp"] / f"port_{case}"
-        with pytest.MonkeyPatch.context() as mp:
+        with ThreadPoolExecutor(1) as pool, pytest.MonkeyPatch.context() as mp:
+            # the port's tool in a thread, beside the JAX tool's run
+            port = pool.submit(infer.main, _args(s, "port", case, out_p) + ["--device", "cpu"],
+                               model=s["model"])
             mp.setattr(jax_builder, "build_detector_from_config", lambda cfg, rng: s["jp"])
             mp.setattr(sys, "argv", ["infer.py"] + _args(s, "jax", case, out_j))
             want = _jax_tool("infer").main()
-        got = infer.main(_args(s, "port", case, out_p) + ["--device", "cpu"], model=s["model"])
-        s["runs"][case] = (want, got, out_j, out_p)
+        s["runs"][case] = (want, port.result(), out_j, out_p)
     return s["runs"][case]
 
 

@@ -31,6 +31,10 @@ from openpsg_tpu_torch.core.config import Config
 from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 from openpsg_tpu_torch.train import checkpoint, losses, trainer
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = lambda a: torch.from_numpy(np.asarray(a))
 

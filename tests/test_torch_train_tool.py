@@ -24,6 +24,10 @@ from openpsg_tpu_torch.tools import infer
 from openpsg_tpu_torch.tools import train as train_tool
 from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "openpsg_tpu_torch/configs/psg/tiny_v4_ov.py")
 TAG = "tinytag"

@@ -42,6 +42,10 @@ from openpsg_tpu_torch.models.segmenter import weight_convert as psw
 from openpsg_tpu_torch.utils import synthetic_weights as syn
 from tests import test_weight_convert as jtw
 
+# the suite's workers share the cores, and these tensors are tiny: one torch
+# thread each, not a pool per worker spinning against the others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 _np = lambda tree: jax.tree_util.tree_map(np.asarray, jax.device_get(tree))

@@ -164,6 +164,89 @@ def family_infer(cfg_path, images, hws):
     return out
 
 
+def serve_dp(state_path, argv, bodies, idle_s, collective_s, rdzv):
+    """The port's server on every rank: rank 0 through
+    ``tools.serve.make_server``, serving over HTTP and posting ``bodies``
+    to itself (image 0 alone; images 0 and 1 at once; the same pair again,
+    whose block on rank 1 raises; after ``idle_s`` idle seconds images 1
+    and 2 at once; then at batch size 4 images 0-2 at once: a padded
+    tail); the other ranks through ``tools.serve.main``, following until
+    rank 0's ``stop()``.  The process group is formed anew first (file
+    rendezvous ``rdzv``) with a collective timeout of ``collective_s``, so
+    the idle wait outlasts it.  → the mesh each built, and rank 0's
+    records and group sizes or a follower's count of groups."""
+    import datetime
+    import http.client
+    import json
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    from openpsg_tpu_torch.tools import serve
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method="file://" + rdzv, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=collective_s))
+    model = _v4(state_path, iou_thr=0.1)
+
+    def mesh_dims(mesh):
+        return None if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    if rank != 0:   # the tool's own entry point
+        infers, infer = [], model.infer
+
+        def failing_second(*a, **k):   # this rank's block of the third group
+            infers.append(1)
+            if len(infers) == 2:
+                raise ValueError("the follower's block fails")
+            return infer(*a, **k)
+
+        model.infer = failing_second
+        ran, run = [], serve.Follower.run
+        serve.Follower.run = lambda self: ran.append((mesh_dims(self.mesh), run(self)))
+        serve.main(argv, model=model)
+        return {"mesh": ran[0][0], "groups": ran[0][1]}
+    httpd, svc = serve.make_server(serve.parse_args(argv), model=model)
+    out = {"mesh": mesh_dims(svc.mesh)}
+    calls, real = [], model.infer_batch     # the groups: a group of one runs infer
+    model.infer_batch = lambda imgs, *a, **k: calls.append(len(imgs)) or real(imgs, *a, **k)
+
+    def post(i, res, k):
+        conn = http.client.HTTPConnection(*httpd.server_address[:2], timeout=300)
+        conn.request("POST", "/infer", body=bodies[i])
+        resp = conn.getresponse()
+        res[k] = (resp.status, json.loads(resp.read()))
+        conn.close()
+
+    def post_many(idx):
+        res = [None] * len(idx)
+        ts = [threading.Thread(target=post, args=(i, res, k)) for k, i in enumerate(idx)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        return res
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        out["single"] = post_many([0])
+        out["pair"] = post_many([0, 1])
+        out["failed"] = post_many([0, 1])
+        time.sleep(idle_s)
+        out["after_idle"] = post_many([1, 2])
+        svc.batch_size = 4
+        out["tail"] = post_many([0, 1, 2])
+    finally:
+        httpd.shutdown()
+        svc.stop()
+        httpd.server_close()
+    out["calls"] = calls
+    return out
+
+
 def v4_train(state_path, arrays, trainable, dp, tp):
     """One dp×tp train step's gradients on this rank's rows of the global
     batch → the dp-mean losses, the global norm, the gradients as whole

@@ -139,7 +139,18 @@ Phases, each fatal on failure:
      ``infer`` on it; the frame extractor on a short video where
      ``cv2.VideoWriter`` can write one; (d) ``tools.selfcheck_openset`` at
      its defaults: the JAX tool's exit rule, the easy tier's R@10 above
-     chance, its median rank below half the hard tier's, no kernel launch.
+     chance, its median rank below half the hard tier's, no kernel launch;
+     (e) ``tools.selfcheck_knobs`` at KNOB_STEPS (fewer than its 700 +
+     400): both losses fall, the six knob variants graded over the same 8
+     held-out images, the ``harness`` block equal to the JAX harness's
+     constants, 2 "simple" shared-KV launches per image and variant (path
+     ``knobs``) and no gather, the ``QDense`` routes per variant, the R@20
+     matrix and the ``KNOBCHECK`` verdict (asserted at the defaults only);
+     then the fullest variant (int8, int8 activations, points 1,1,4) on
+     the trained weights card vs CPU: panoptic ids, objects, top pairs and
+     triplets equal, scores within TOL_KNOB_SCORE, an integer that differs
+     excused only by a deciding margin within it (counted), tokens by the
+     margin rule.
 
   13. parallelism on the card (``parallel/``): (a) ``python -m
      torch.distributed.run --standalone --nproc_per_node 1 -m
@@ -631,8 +642,8 @@ def main() -> int:
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
-        for path in ("serve", "serve_learned", "predict", "pvsg", "openset", "infer_batch_tool",
-                     "infer_batch_dp", "pair_sharded", "serve_dp"):
+        for path in ("serve", "serve_learned", "predict", "pvsg", "openset", "knobs",
+                     "infer_batch_tool", "infer_batch_dp", "pair_sharded", "serve_dp"):
             assert path in k["launches_by_path"], (k["name"], path)
         k["launches"] = sum(k["launches_by_path"].values())
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2864,10 +2875,254 @@ def phase_openset(torch, skv, gat):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 12e's steps, fewer than the harness's defaults (700 + 400) so that
+# the phase fits its budget of 150 s; the defaults run alone (PERF.md)
+KNOB_STEPS = (100, 40)
+# the JAX harness's constants: 16 images, 8 objects, 8·7·56 candidates
+KNOB_HARNESS = {"images": 16, "objects_per_image": 8, "predicates": 12,
+                "gt_relations_per_image": 10, "candidates_per_image": 3136,
+                "chance_R@20_pct": 0.64}
+TOL_KNOB_SCORE = 1e-4  # a score of the trained f32 tiny model, card vs CPU:
+                       # phase 4's tiny check's tolerance (``atol`` there)
+
+
+def fusion_gap(torch, model, seg, img_hw):
+    """``fuse_select``'s per-pixel winner rule on a segmenter output: the gap
+    between the best and the second-best score-weighted mask probability
+    of each pixel [H, W] (the margin that decides its panoptic id)."""
+    c = model.cfg
+    cls_logits, masks = seg["cls_logits"].float(), seg["masks"].float()
+    scores = torch.sigmoid(cls_logits).max(dim=-1).values
+    C = int(c.fusion_candidates)
+    if C and C < scores.shape[0]:
+        from openpsg_tpu_torch.models.relation.head_v4 import topk_stable
+
+        cand = torch.sort(topk_stable(scores, C)[1]).values
+        cls_logits, masks, scores = cls_logits[cand], masks[cand], scores[cand]
+    H4, W4 = seg["mask_features"].shape[:2]
+    probs = torch.sigmoid(torch.nn.functional.interpolate(
+        masks[None], size=(H4 * 4, W4 * 4), mode="bilinear", align_corners=False)[0])
+    dev = probs.device
+    inside = ((torch.arange(probs.shape[1], device=dev)[:, None] < int(img_hw[0]))
+              & (torch.arange(probs.shape[2], device=dev)[None, :] < int(img_hw[1])))
+    probs = torch.where(inside[None], probs, torch.zeros_like(probs))
+    w = torch.where((scores > c.object_mask_thr)[:, None, None], scores[:, None, None] * probs,
+                    torch.full_like(probs, -1.0))
+    top2 = torch.topk(w, 2, dim=0).values
+    return top2[0] - top2[1]
+
+
+def knob_run(torch, model, image, hw, forced=None):
+    """One ``infer`` of ``model`` recorded (:func:`recorded`), with its
+    segmenter output, the query decoder's two-stage selection (the encoder
+    scores and the chosen indices) and its head outputs → (host dict,
+    logits, segmenter output, (scores, indices), head outputs)."""
+    from openpsg_tpu_torch.models.segmenter import decoder
+
+    segs, heads, picks = [], {}, []
+    real_segment, real_topk = model.segment, decoder.topk_indices
+    model.segment = lambda img: segs.append(real_segment(img)) or segs[-1]
+    decoder.topk_indices = lambda x, k: picks.append((x.detach(), real_topk(x, k))) or picks[-1][1]
+    hook = model.head.register_forward_hook(lambda mod, inp, o: heads.update(o))
+    try:
+        with recorded(model, forced=forced) as rec:
+            model.infer(image, hw)
+    finally:
+        hook.remove()
+        del model.segment
+        decoder.topk_indices = real_topk
+    (dev, logits), = per_image(torch, rec)
+    (scores, idx), = picks
+    return dev, logits, segs[0], (scores.float().cpu(), idx.cpu()), heads
+
+
+def phase_knobs_card_vs_cpu(torch, res, name):
+    """The variant ``name`` of the harness's trained weights on the card and
+    on the CPU, on the held-out images, the CPU run teacher-forced on the
+    card's tokens.  Panoptic ids, kept objects, top pairs and top-100
+    triplets must be equal, scores within TOL_KNOB_SCORE; where an integer
+    output differs, the margin that decided it must lie within the
+    tolerance (:func:`agree_ranked` for the query decoder's two-stage
+    selection of encoder tokens, the top pairs and the triplets; the
+    fusion's top-2 gap on the CPU for a pixel).  Where the selected queries
+    differ (neighbouring tokens of one uniform cell score alike), the
+    segmenter's outputs differ by more than roundoff: that image's pixels,
+    objects and object scores are excused, counted, and an image whose
+    objects or panoptic pixels differ is excused from the pair, triplet and
+    token checks, whose inputs then differ.  Tokens: :func:`agree_tokens`.  → {output
+    kind: excused count}."""
+    import numpy as np
+
+    from openpsg_tpu_torch.data.preprocess import Preprocessor, load_image_rgb
+    from openpsg_tpu_torch.tools.selfcheck_knobs import variant_model
+
+    trained = res["pipeline"]
+    card, cpu = variant_model(trained, name, "cuda"), variant_model(trained, name, "cpu")
+    H, _ = card._model_hw()
+    pre = Preprocessor(scale=(H, H))
+    root = os.path.dirname(res["ann"])
+    M = card.cfg.head.max_objects_padded
+    excused = {"query_ranks": 0, "pixels": 0, "object_lists": 0, "object_scores": 0,
+               "head_images": 0, "pair_ranks": 0, "triplet_ranks": 0}
+    runs, n_same, query_err = [], 0, 0.0
+    for i, d in enumerate(res["held_out"]):
+        ex = pre(load_image_rgb(os.path.join(root, d["file_name"])))
+        image, hw = ex["image"].astype(np.float32), ex["img_shape"]
+        da, la, sa, qa, ha = knob_run(torch, card, image, hw)
+        db, lb, sb, qb, hb = knob_run(torch, cpu, image, hw, forced=fed_tokens(torch, {
+            "logits": [lg.reshape(-1, lg.shape[-1]) for lg in la]}))
+        same_queries = torch.equal(qa[1], qb[1])
+        query_err = max(query_err, float((qa[0] - qb[0]).abs().max()))
+        if not same_queries:
+            agree_ranked(torch, f"knobs {name} image {i} decoder queries", TOL_KNOB_SCORE,
+                         qa[1], qb[1], qa[0], qb[0])
+            excused["query_ranks"] += int((qa[1] != qb[1]).sum())
+        pix = da["pan_seg"] != db["pan_seg"]
+        if pix.any() and not same_queries:
+            excused["pixels"] += int(pix.sum())
+        elif pix.any():
+            gap = fusion_gap(torch, cpu, sb, hw).numpy()
+            widest = float(gap[pix].max())
+            if widest > TOL_KNOB_SCORE:
+                raise AssertionError(f"knobs {name} image {i}: {int(pix.sum())} pixels differ, "
+                                     f"one decided by a margin of {widest:.3e}")
+            excused["pixels"] += int(pix.sum())
+        if not (np.array_equal(da["object_ids"], db["object_ids"])
+                and np.array_equal(da["object_valid"], db["object_valid"])):
+            if not pix.any():
+                raise AssertionError(f"knobs {name} image {i}: the object lists differ on "
+                                     "equal panoptic maps")
+            excused["object_lists"] += 1
+            continue
+        off = np.abs(da["object_scores"] - db["object_scores"]) > TOL_KNOB_SCORE
+        if off.any() and same_queries:
+            raise AssertionError(f"knobs {name} image {i}: object scores differ by "
+                                 f"{float(np.abs(da['object_scores'] - db['object_scores']).max()):.3e}"
+                                 " with the same decoder queries")
+        excused["object_scores"] += int(off.sum())
+        if pix.any():          # the head's object masks differ, so do its inputs
+            excused["head_images"] += 1
+            continue
+        valid = torch.as_tensor(db["object_valid"])
+        pair = torch.arange(M * M)
+        pv = valid[pair // M] & valid[pair % M]
+        if not bool(pv.any()):      # no pair to rank: the selections are the padding's
+            for key in ("top_pair_idx", "mc_triplets"):
+                if not np.array_equal(da[key], db[key]):
+                    raise AssertionError(f"knobs {name} image {i}: {key} differs with no "
+                                         "valid pair")
+            continue
+        ninf = torch.tensor(float("-inf"))
+        full = [torch.where(pv, torch.sigmoid(h["binary_logits"].float().cpu()), ninf)
+                for h in (ha, hb)]
+        agree_ranked(torch, f"knobs {name} image {i} top_pair_idx", TOL_KNOB_SCORE,
+                     torch.as_tensor(da["top_pair_idx"]).long(),
+                     torch.as_tensor(db["top_pair_idx"]).long(), *full)
+        excused["pair_ranks"] += int((da["top_pair_idx"] != db["top_pair_idx"]).sum())
+        mc_ok = (pv & (pair // M != pair % M))[:, None]
+        mc = [torch.where(mc_ok, torch.sigmoid(h["multiclass_logits"].float().cpu()), 0.0)
+              for h in (ha, hb)]
+        R = mc[0].shape[1]
+        flat = lambda t: ((torch.as_tensor(t[:, 0]).long() * M + torch.as_tensor(t[:, 1]).long())
+                          * R + torch.as_tensor(t[:, 2]).long())
+        agree_ranked(torch, f"knobs {name} image {i} mc_triplets", TOL_KNOB_SCORE,
+                     flat(da["mc_triplets"]), flat(db["mc_triplets"]), *mc)
+        excused["triplet_ranks"] += int((flat(da["mc_triplets"]) != flat(db["mc_triplets"]))
+                                        .sum())
+        if np.array_equal(da["top_pair_idx"], db["top_pair_idx"]):
+            n_same += 1
+            T = min(int(da["decode_trips"]), int(db["decode_trips"]))
+            runs.append((la[:T], lb[:T].to(la.device)))
+    if runs:
+        agree_tokens(torch, f"knobs {name}", runs)
+    log(f"[knobs] {name} on the trained weights, card vs CPU on {len(res['held_out'])} "
+        f"held-out images: {n_same} with equal objects and top pairs (their tokens held by "
+        f"the margin rule); the encoder scores of the decoder's query selection within "
+        f"{query_err:.3e}; outputs excused by a margin within {TOL_KNOB_SCORE:g}: {excused}")
+    return excused
+
+
+def phase_knobs(torch, skv, gat):
+    """Phase 12e: ``tools.selfcheck_knobs`` on the card at KNOB_STEPS: both
+    losses fall; the six variants graded, each over the same 8 held-out
+    images; the printed ``harness`` block equal to the JAX harness's
+    constants; 2 "simple" launches of the shared-KV kernel per image and
+    variant (the tiny float32 Q-Former's 2 layers), none "hopper", no
+    gather (path ``knobs``); the ``QDense`` routes per variant; the
+    fullest variant card vs CPU (:func:`phase_knobs_card_vs_cpu`).  Prints
+    the R@20 matrix and the ``KNOBCHECK`` verdict, which it asserts only
+    at the harness's default steps."""
+    import shutil
+    import tempfile
+
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import selfcheck_knobs
+
+    seg_steps, rel_steps = KNOB_STEPS
+    root = tempfile.mkdtemp(prefix="chip_smoke_knobs_")
+    try:
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+        t0 = time.perf_counter()
+        res = selfcheck_knobs.run(root, seg_steps=seg_steps, rel_steps=rel_steps,
+                                  device="cuda", log=lambda *a: None)
+        wall = time.perf_counter() - t0
+        launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "knobs")
+        s = res["summary"]
+        images = [d["image_id"] for d in res["held_out"]]
+        log(f"[knobs] tools.selfcheck_knobs on the card ({seg_steps} + {rel_steps} steps): "
+            f"R@20 {json.dumps(s['R@20'])}; mR@20 {json.dumps(s['mR@20'])}; R@50 "
+            f"{json.dumps(s['R@50'])}; delta R@20 vs int8 {json.dumps(s['delta_R@20_vs_int8'])};"
+            f" KNOBCHECK {'PASS' if res['ok'] else 'FAIL'} (bf16 R@20 {s['R@20']['bf16']} vs "
+            f"({5 * s['harness']['chance_R@20_pct']:.1f}, 99.5)); QDense calls by route "
+            f"{json.dumps(res['qdense'])}; phases (s) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
+            + f" (C per variant {json.dumps({k: round(v, 1) for k, v in res['variant_seconds'].items()})});"
+            f" in all {wall:.1f} s; losses {json.dumps(res['seg_losses'][0])} -> "
+            f"{json.dumps(res['seg_losses'][-1])}, {json.dumps(res['rel_losses'][0])} -> "
+            f"{json.dumps(res['rel_losses'][-1])}; shared-KV launches {by_variant}, "
+            f"sparse_row_gather {gathers}")
+        for key in ("seg_losses", "rel_losses"):
+            if not res[key][-1]["loss"] < res[key][0]["loss"]:
+                raise AssertionError(f"knobs: {key} did not fall")
+        if list(res["results"]) != list(selfcheck_knobs.VARIANTS) or images != [
+                str(i) for i in range(8, 16)] or any(
+                len(r) != len(images) for r in res["results"].values()):
+            raise AssertionError(f"knobs: expected six variants over the same 8 held-out "
+                                 f"images, saw {[(k, len(r)) for k, r in res['results'].items()]}"
+                                 f" over {images}")
+        for name, (sub, *_rest) in selfcheck_knobs.VARIANTS.items():
+            with open(os.path.join(root, sub, "submission", "relation.json")) as f:
+                if len(json.load(f)) != len(images):
+                    raise AssertionError(f"knobs: {name}'s submission is not 8 records")
+        if s["harness"] != KNOB_HARNESS:
+            raise AssertionError(f"knobs: harness block {s['harness']} != {KNOB_HARNESS}")
+        want = {"simple": 2 * len(images) * len(selfcheck_knobs.VARIANTS), "hopper": 0}
+        if by_variant != want or gathers:
+            raise AssertionError(f"knobs: expected shared-KV launches {want} and no gather, "
+                                 f"saw {by_variant} and {gathers}")
+        for name, (_, _, quant, act) in selfcheck_knobs.VARIANTS.items():
+            q = res["qdense"][name]
+            if (q["int8"] > 0) != act or (q["weight_only"] > 0) != quant:
+                raise AssertionError(f"knobs: {name}'s QDense routes {q}")
+        if KNOB_STEPS == (700, 400) and not res["ok"]:
+            raise AssertionError("knobs: the harness is not discriminative at its defaults")
+        t1 = time.perf_counter()
+        excused = phase_knobs_card_vs_cpu(torch, res, "int8+act+deep_prune")
+        log("[knobs] stats " + json.dumps(dict(
+            summary=s, ok=res["ok"], steps=KNOB_STEPS, seconds=res["seconds"],
+            variant_seconds=res["variant_seconds"], qdense=res["qdense"], wall=wall,
+            card_vs_cpu_s=time.perf_counter() - t1, excused=excused,
+            seg_losses=res["seg_losses"], rel_losses=res["rel_losses"])))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_serving(torch, skv, gat, learned):
-    """Phase 12: serving, prediction, PVSG frames and the open-set selfcheck
-    (:func:`phase_serve_full`, :func:`phase_serve_learned` on phase 11d's
-    result ``learned``, :func:`phase_pvsg`, :func:`phase_openset`).  → 12a's
+    """Phase 12: serving, prediction, PVSG frames, the open-set selfcheck and
+    the knob-cost harness (:func:`phase_serve_full`,
+    :func:`phase_serve_learned` on phase 11d's result ``learned``,
+    :func:`phase_pvsg`, :func:`phase_openset`, :func:`phase_knobs`).  → 12a's
     full-width int8 model, for phase 13d."""
     t_phase = time.perf_counter()
     times = {}
@@ -2886,6 +3141,10 @@ def phase_serving(torch, skv, gat, learned):
     phase_openset(torch, skv, gat)
     torch.cuda.empty_cache()
     times["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_knobs(torch, skv, gat)
+    torch.cuda.empty_cache()
+    times["e"] = time.perf_counter() - t0
     log(f"[serve] phase 12 in {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"12{k} {v:.1f} s" for k, v in times.items()) + ")")
     return deploy
@@ -3542,7 +3801,9 @@ def llama_full_mask(torch):
     log(f"[parallel] 13d tiny Llama with a decouple_label_masks full_mask (no cache, and a "
         f"cache filled in 2 blocks), card vs CPU: logits within {worst:.3g} of scale (tol "
         f"{TOL_F32:g}); the JAX-file readers' packages import here: "
-        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items()))
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items())
+        + ("" if have["tensorstore"] else " (so reading a JAX orbax checkpoint, for "
+           "inference or to resume a JAX run's training, runs in the CPU tests only)"))
 
 
 if __name__ == "__main__":

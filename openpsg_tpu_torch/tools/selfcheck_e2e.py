@@ -11,7 +11,8 @@ Phases:
      sigmoid mode, Hungarian matching; AdamW with a cosine schedule from
      2e-3);
   B. the relation head and the LLM train (:class:`V4Trainer` with
-     ``("head", "llm")``, AdamW at 2e-3, clip 1.0);
+     ``("head", "llm")``, AdamW at 2e-3, clip 1.0) (A and B:
+     :func:`train_from_scratch`, which ``selfcheck_knobs`` shares);
   C. the trained weights leave through the deployment files (the
      segmenter as ``segmenter.pt``, the class embeddings as
      ``class_embeds.npy``, head and LLM as a part checkpoint), a config
@@ -64,15 +65,6 @@ def run(root: str, seg_steps: int = 900, rel_steps: int = 400, device="cuda", lo
     from openpsg_tpu_torch.data.psg_dataset import PSGDataset
     from openpsg_tpu_torch.tools import grade, infer
     from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
-    from openpsg_tpu_torch.train.segmenter_trainer import SegmenterTrainer, SegTrainBatch
-    from openpsg_tpu_torch.train.trainer import (
-        AdamW,
-        TrainBatch,
-        V4Trainer,
-        host_batch,
-        make_cosine_schedule,
-        make_optimizer,
-    )
     from openpsg_tpu_torch.utils.fixture import make_fixture
 
     device = resolve_device(device)
@@ -86,8 +78,63 @@ def run(root: str, seg_steps: int = 900, rel_steps: int = 400, device="cuda", lo
     M = pipeline.cfg.head.max_objects_padded
     ds = PSGDataset(ann, img_prefix=root, seg_prefix=root, split="train")
     exs = [ds.load_example(i, pre, M) for i in range(len(ds))]
-    stack = lambda k: np.stack([e[k] for e in exs])
     out = {"ann": ann, "pipeline": pipeline, "seconds": {}}
+
+    trainer, st2 = train_from_scratch(pipeline, exs, seg_steps, rel_steps, device, log, out)
+
+    # ---------------- phase C: deployment files → infer tool → grader
+    log("[C] export -> tools.infer -> tools.grade (strict protocol)")
+    t0 = time.perf_counter()
+    seg_path = os.path.join(root, "segmenter.pt")
+    torch.save({k: v.detach().cpu() for k, v in pipeline.segmenter.state_dict().items()},
+               seg_path)
+    ce_path = os.path.join(root, "class_embeds.npy")
+    np.save(ce_path, pipeline.class_embeds.detach().cpu().numpy())
+    ckpt_dir = os.path.join(root, "ckpts")
+    PartCheckpointer(ckpt_dir).save(rel_steps, trainer.master, st2, meta={"epoch": 1})
+    cfg_path = os.path.join(root, "selfcheck_cfg.py")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        # the LLM trained in phase B: only the segmenter side is frozen, so
+        # the part checkpoint holds {head, llm}
+        f.write(f"_base_ = [{BASE_CONFIG!r}]\n"
+                f"model = dict(openseed_pretrained_path={seg_path!r},\n"
+                f"             precomputed_class_embeds={ce_path!r},\n"
+                "             train_cfg=dict(freeze_layers=['openseed']))\n")
+    common = ["--config", cfg_path, "--checkpoint", ckpt_dir, "--test-file", ann,
+              "--data-dir", root, "--img-scale", str(H), str(H), "--seed", "0",
+              "--device", str(device)]
+    for key, sub, extra in (("", "out", []), ("gt_", "out_gt", ["--gt-masks"])):
+        sub_dir = os.path.join(root, sub)
+        out[f"{key}infer_stats"] = infer.main(common + ["--output-dir", sub_dir] + extra)
+        out[f"{key}scores"] = grade.main(["--submission", sub_dir, "--gt-json", ann,
+                                          "--data-dir", root, "--ks", "20"])
+    out["seconds"]["C"] = time.perf_counter() - t0
+    s, g = out["scores"], out["gt_scores"]
+    log(f"  strict R@20={s['R@20']:.1f} mR@20={s['mR@20']:.1f} | GT-mask upper bound "
+        f"R@20={g['R@20']:.1f}")
+    return out
+
+
+def train_from_scratch(pipeline, exs, seg_steps: int, rel_steps: int, device, log, out):
+    """Phases A and B on the examples ``exs`` (``PSGDataset.load_example``):
+    the segmenter and the class embeddings, then the relation head and the
+    LLM, trained in place in ``pipeline``.  Records in ``out`` the losses of
+    every 50th segmenter step and every 100th relation step, the last of
+    each included (``seg_losses``, ``rel_losses``), and the phases' wall
+    seconds (``seconds["A"]``, ``seconds["B"]``).  → (the relation
+    trainer, its optimizer state)."""
+    from openpsg_tpu_torch.train.segmenter_trainer import SegmenterTrainer, SegTrainBatch
+    from openpsg_tpu_torch.train.trainer import (
+        AdamW,
+        TrainBatch,
+        V4Trainer,
+        host_batch,
+        make_cosine_schedule,
+        make_optimizer,
+    )
+
+    stack = lambda k: np.stack([e[k] for e in exs])
+    out.setdefault("seconds", {})
 
     # ---------------- phase A: segmenter and class embeddings
     log(f"[A] segmenter training, {seg_steps} steps on {len(exs)} images")
@@ -139,38 +186,7 @@ def run(root: str, seg_steps: int = 900, rel_steps: int = 400, device="cuda", lo
     for p in trainer.params.values():
         p.requires_grad_(False)
     out["seconds"]["B"] = time.perf_counter() - t0
-
-    # ---------------- phase C: deployment files → infer tool → grader
-    log("[C] export -> tools.infer -> tools.grade (strict protocol)")
-    t0 = time.perf_counter()
-    seg_path = os.path.join(root, "segmenter.pt")
-    torch.save({k: v.detach().cpu() for k, v in pipeline.segmenter.state_dict().items()},
-               seg_path)
-    ce_path = os.path.join(root, "class_embeds.npy")
-    np.save(ce_path, pipeline.class_embeds.detach().cpu().numpy())
-    ckpt_dir = os.path.join(root, "ckpts")
-    PartCheckpointer(ckpt_dir).save(rel_steps, trainer.master, st2, meta={"epoch": 1})
-    cfg_path = os.path.join(root, "selfcheck_cfg.py")
-    with open(cfg_path, "w", encoding="utf-8") as f:
-        # the LLM trained in phase B: only the segmenter side is frozen, so
-        # the part checkpoint holds {head, llm}
-        f.write(f"_base_ = [{BASE_CONFIG!r}]\n"
-                f"model = dict(openseed_pretrained_path={seg_path!r},\n"
-                f"             precomputed_class_embeds={ce_path!r},\n"
-                "             train_cfg=dict(freeze_layers=['openseed']))\n")
-    common = ["--config", cfg_path, "--checkpoint", ckpt_dir, "--test-file", ann,
-              "--data-dir", root, "--img-scale", str(H), str(H), "--seed", "0",
-              "--device", str(device)]
-    for key, sub, extra in (("", "out", []), ("gt_", "out_gt", ["--gt-masks"])):
-        sub_dir = os.path.join(root, sub)
-        out[f"{key}infer_stats"] = infer.main(common + ["--output-dir", sub_dir] + extra)
-        out[f"{key}scores"] = grade.main(["--submission", sub_dir, "--gt-json", ann,
-                                          "--data-dir", root, "--ks", "20"])
-    out["seconds"]["C"] = time.perf_counter() - t0
-    s, g = out["scores"], out["gt_scores"]
-    log(f"  strict R@20={s['R@20']:.1f} mR@20={s['mR@20']:.1f} | GT-mask upper bound "
-        f"R@20={g['R@20']:.1f}")
-    return out
+    return trainer, st2
 
 
 def main(argv=None) -> int:

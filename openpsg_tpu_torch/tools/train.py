@@ -12,8 +12,12 @@ model's trainer (:class:`V4Trainer` for PSG v4, :class:`M2FTrainer` for the
 closed-set v1-v3 family, as the JAX tool chooses), a log line every
 ``log_config.interval`` steps in the reference's format; a part
 checkpoint (the trainable groups and the optimizer state only) after each
-epoch under ``<work_dir>/ckpts``; with ``--validate`` (or a ``('val', n)``
-workflow phase) panoptic PQ on the val split after each epoch.
+epoch under ``<work_dir>/ckpts``; ``--resume-from DIR`` (that directory,
+not ``<work_dir>/ckpts``) or ``--auto-resume`` continue from the latest
+step of the port's layout or of a JAX run's orbax checkpoint (values,
+AdamW count and moments: ``train/checkpoint.read_training_state``); with
+``--validate`` (or a ``('val', n)`` workflow phase) panoptic PQ on the val
+split after each epoch.
 
 The groups ``train_cfg.freeze_layers`` leaves trainable are optimized
 (the reference recipe: the relation head; for the family, the head and
@@ -69,9 +73,13 @@ def parse_args(argv=None):
     ap.add_argument("config")
     ap.add_argument("--work-dir", default=None)
     ap.add_argument("--resume-from", default=None, metavar="DIR",
-                    help="resume from the latest step of this checkpoint directory")
+                    help="resume from the latest step of this checkpoint directory: the "
+                         "port's step_<N> layout (values, AdamW count and moments) or a JAX "
+                         "run's orbax steps (params and the make_optimizer state, read "
+                         "without JAX; needs tensorstore); later steps are saved in the "
+                         "port's layout under <work_dir>/ckpts")
     ap.add_argument("--auto-resume", action="store_true",
-                    help="resume from <work_dir>/ckpts when it holds a step")
+                    help="resume from <work_dir>/ckpts when it holds a step of either layout")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--diff-seed", action="store_true",
                     help="accepted for compatibility (every rank draws the same host batch)")
@@ -224,6 +232,8 @@ def main(argv=None, model=None):
     from openpsg_tpu_torch.train.checkpoint import (
         PartCheckpointer,
         freeze_keys_from_config,
+        open_checkpoint,
+        read_training_state,
         trainable_groups,
     )
     from openpsg_tpu_torch.train.trainer import (
@@ -350,13 +360,17 @@ def main(argv=None, model=None):
     ckpt_dir = os.path.join(work_dir, "ckpts")
     ckpt = PartCheckpointer(ckpt_dir, max_keep=cfg.checkpoint_config.get("max_keep_ckpts", 3))
     start_step = 0
-    resume = args.resume_from or (ckpt_dir if args.auto_resume and ckpt.latest_step()
-                                  is not None else None)
+    # --resume-from reads the directory it names (the JAX tool reads
+    # <work_dir>/ckpts whatever it is given: F11)
+    resume = args.resume_from or (ckpt_dir if args.auto_resume and open_checkpoint(ckpt_dir)
+                                  .latest_step() is not None else None)
     if resume:
-        params, opt_state, _, start_step = PartCheckpointer(resume).restore(device=device)
+        params, state, _, start_step = read_training_state(model, resume, trainer.master,
+                                                           device=device)
         trainer.load_master(trainer.localize(params))
-        opt_state.update(mu=trainer.localize(opt_state["mu"]), nu=trainer.localize(opt_state["nu"]))
-        logger.info(f"resumed from {resume} step {start_step}")
+        opt_state.update(count=state["count"], mu=trainer.localize(state["mu"]),
+                         nu=trainer.localize(state["nu"]))
+        logger.info(f"resumed from {resume} step {start_step} (AdamW count {state['count']})")
 
     H, _ = model._model_hw()
     preproc = Preprocessor(scale=(H, H))

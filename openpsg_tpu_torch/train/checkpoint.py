@@ -13,13 +13,17 @@ complete or absent.  The ``max_keep`` newest steps are kept.  Files load
 with ``torch.load(weights_only=True)``.
 
 The JAX package's part checkpoints (orbax: ``<dir>/<N>/params/`` holding
-the trainable groups' flax trees, ``<dir>/<N>/meta/metadata`` JSON) are
-read too, without JAX (:class:`OrbaxPartReader`, through ``tensorstore``):
-:func:`read_trainable` tells the two layouts apart and gives either's
-trainable groups under the port's parameter names, so every tool's
-``--checkpoint`` takes both.  Only their parameters are read; a JAX
-optimizer state is not restored (training resumes from the port's own
-checkpoints only).
+the trainable groups' flax trees, ``<dir>/<N>/opt_state/`` the state of
+its ``make_optimizer`` chain, ``<dir>/<N>/meta/metadata`` JSON) are read
+too, without JAX (:class:`OrbaxPartReader`, through ``tensorstore``).
+:func:`open_checkpoint` tells the two layouts apart.  For inference,
+:func:`read_trainable` gives either's trainable groups under the port's
+parameter names, so every tool's ``--checkpoint`` takes both.  For
+training, :func:`read_training_state` gives either's values and AdamW
+state (count and both moments, the JAX moments mapped as their
+parameters are), so the train tool's ``--resume-from`` and
+``--auto-resume`` continue a run of either package; the port then writes
+its own layout.
 """
 
 from __future__ import annotations
@@ -148,6 +152,58 @@ class OrbaxPartReader:
 
         return read_orbax_tree(os.path.join(self._path(step), "params"))
 
+    def opt_state(self, step: int, model) -> Dict[str, Any]:
+        """The ``opt_state`` item of ``step``, the state of the JAX
+        ``make_optimizer`` chain, → the port's AdamW state ``{"count": int,
+        "mu": {...}, "nu": {...}}``, the moments under the port's parameter
+        names (:func:`port_params`: transposed and unstacked as their
+        parameters are).  Refuses another chain, and a state whose Adam and
+        schedule counts differ."""
+        from openpsg_tpu_torch.utils.jax_files import read_orbax_tree
+
+        where = os.path.join(self._path(step), "opt_state")
+        count, mu, nu = _adamw_state(read_orbax_tree(where), where)
+        return {"count": count, "mu": port_params(model, mu), "nu": port_params(model, nu)}
+
+
+# The JAX make_optimizer chain (openpsg_tpu/train/trainer.py:173-201), its
+# members in order, with the state orbax saves for each: None for an empty
+# state, else the state's fields.  The last member exists only with
+# paramwise lr multipliers.
+_JAX_CHAIN = (("clip_by_global_norm", None), ("scale_by_adam", {"count", "mu", "nu"}),
+              ("add_decayed_weights", None), ("scale_by_learning_rate", {"count"}),
+              ("lr_mult scaling", None))
+
+
+def _adamw_state(chain, where: str) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
+    """The saved state of the JAX ``make_optimizer`` chain (as
+    :func:`~openpsg_tpu_torch.utils.jax_files.read_orbax_tree` gives it) →
+    (count, first-moment tree, second-moment tree).  Refuses, by name,
+    another chain and a state whose Adam and schedule counts differ (the
+    port's AdamW keeps one count for both)."""
+    def shape(node):
+        return "empty" if node is None else (sorted(node) if isinstance(node, dict)
+                                             else type(node).__name__)
+
+    members = (sorted(chain, key=lambda k: (len(k), k)) if isinstance(chain, dict)
+               else None)
+    ok = members in ([str(i) for i in range(4)], [str(i) for i in range(5)]) and all(
+        (chain[str(i)] is None) if fields is None
+        else isinstance(chain[str(i)], dict) and set(chain[str(i)]) == fields
+        for i, (_, fields) in enumerate(_JAX_CHAIN[:len(members)]))
+    if not ok:
+        want = " -> ".join(n for n, _ in _JAX_CHAIN[:4]) + f" [-> {_JAX_CHAIN[4][0]}]"
+        got = ({k: shape(chain[k]) for k in members} if members is not None
+               else shape(chain))
+        raise ValueError(f"{where}: not the state of the JAX make_optimizer chain that the "
+                         f"port's AdamW implements ({want}); its members: {got}")
+    adam, sched = int(chain["1"]["count"]), int(chain["3"]["count"])
+    if adam != sched:
+        raise ValueError(f"{where}: scale_by_adam's count {adam} differs from "
+                         f"scale_by_learning_rate's count {sched}; the port's AdamW keeps "
+                         "one count for both")
+    return adam, chain["1"]["mu"], chain["1"]["nu"]
+
 
 def open_checkpoint(ckpt_dir: str):
     """The reader of a checkpoint directory, told by its layout: an
@@ -202,6 +258,41 @@ def read_trainable(model, ckpt_dir: str, epoch: Optional[int] = None
         return params, meta, step
     step = ckpt.latest_step() if step is None else step
     return port_params(model, ckpt.params(step)), ckpt.meta(step), step
+
+
+def read_training_state(model, ckpt_dir: str, names, device=None
+                        ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any], Dict[str, Any], int]:
+    """The latest step of a part checkpoint, the port's or the JAX
+    package's, for resuming training → (values, AdamW state ``{"count",
+    "mu", "nu"}``, meta, step), tensors on ``device`` (default the CPU),
+    all under the port's parameter names.  Refuses, naming the difference,
+    a checkpoint whose values or moments do not cover exactly ``names``
+    (the trainable tensors), or whose moments' shapes differ from their
+    values'."""
+    ckpt = open_checkpoint(ckpt_dir)
+    if isinstance(ckpt, PartCheckpointer):
+        params, opt_state, meta, step = ckpt.restore(device=device)
+    else:
+        step = ckpt.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        params, opt_state = port_params(model, ckpt.params(step)), ckpt.opt_state(step, model)
+        meta = ckpt.meta(step)
+        to = lambda d: {k: v.to(device) for k, v in d.items()} if device is not None else d
+        params = to(params)
+        opt_state.update(mu=to(opt_state["mu"]), nu=to(opt_state["nu"]))
+    names = set(names)
+    for what, tensors in (("values", params), ("first moments", opt_state["mu"]),
+                          ("second moments", opt_state["nu"])):
+        if set(tensors) != names:
+            raise KeyError(f"{ckpt_dir} step {step}: its {what} do not cover exactly the "
+                           f"trainable tensors: missing {sorted(names - set(tensors))[:5]}, "
+                           f"not trained {sorted(set(tensors) - names)[:5]}")
+        bad = [k for k, v in tensors.items() if v.shape != params[k].shape]
+        if bad:
+            raise ValueError(f"{ckpt_dir} step {step}: its {what} of {bad[:5]} differ in shape "
+                             "from the values")
+    return params, opt_state, meta, step
 
 
 def _model_cfg(cfg):

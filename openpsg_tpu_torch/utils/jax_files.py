@@ -11,7 +11,10 @@
   ``opt_state``): the tree comes from its ``_METADATA`` JSON, each array
   from its zarr store inside the item's OCDBT key-value store (the layout
   the JAX package's orbax writes; another is refused by name) through
-  ``tensorstore``.
+  ``tensorstore``.  A tuple or namedtuple node (an optax chain's state,
+  its members by position) is a dict keyed by position (``"0"``, ...) or
+  field name, as its ``_METADATA`` names them; an empty state (optax's
+  ``EmptyState``, saved as a ``None`` leaf) is ``None``.
 
 Both give nested dicts of numpy arrays; bfloat16 arrays become float32
 (numpy has no bfloat16 of its own).  ``msgpack`` and ``tensorstore`` are
@@ -84,7 +87,8 @@ def read_flax_msgpack(path: str) -> Dict[str, Any]:
 
 def read_orbax_tree(item_dir: str) -> Dict[str, Any]:
     """One ``StandardSave`` item of an orbax checkpoint (a directory holding
-    ``_METADATA``) → its tree (nested dicts, numpy leaves)."""
+    ``_METADATA``) → its tree (nested dicts, numpy leaves, ``None`` for an
+    empty state)."""
     ts = _require("tensorstore", f"the orbax checkpoint {item_dir}")
     with open(os.path.join(item_dir, "_METADATA"), encoding="utf-8") as f:
         meta = json.load(f)
@@ -97,13 +101,16 @@ def read_orbax_tree(item_dir: str) -> Dict[str, Any]:
     for entry in meta["tree_metadata"].values():
         keys = [str(k["key"]) for k in entry["key_metadata"]]
         kind = entry["value_metadata"]["value_type"]
-        if kind not in ("jax.Array", "np.ndarray"):
+        if kind == "None":
+            arr = None
+        elif kind in ("jax.Array", "np.ndarray"):
+            spec = {"driver": "zarr", "path": ".".join(keys),
+                    "kvstore": {"driver": "ocdbt", "base": base}}
+            arr = np.asarray(ts.open(spec, open=True, read=True).result().read().result())
+            if arr.dtype.name == "bfloat16":
+                arr = _bf16_to_f32(arr.view(np.uint16))
+        else:
             raise ValueError(f"{item_dir}: leaf {'/'.join(keys)} is a {kind!r}, not an array")
-        spec = {"driver": "zarr", "path": ".".join(keys),
-                "kvstore": {"driver": "ocdbt", "base": base}}
-        arr = np.asarray(ts.open(spec, open=True, read=True).result().read().result())
-        if arr.dtype.name == "bfloat16":
-            arr = _bf16_to_f32(arr.view(np.uint16))
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})

@@ -24,10 +24,29 @@ on the files the JAX package writes.
   (F8); with ``tensorstore`` or ``msgpack`` unimportable the port raises an
   ``ImportError`` naming it; and a process where jax, flax, orbax, optax
   and the JAX package cannot be imported reads both files.
+* Resuming a JAX run's training: the JAX tiny model's head and LLM trees
+  are traced, not compiled (``jax.eval_shape`` of their initializers), and
+  filled with seeded values; the JAX ``make_optimizer`` chain takes 3
+  seeded updates (one jitted update program serves the chain with and
+  without paramwise multipliers, its fifth member), and the JAX
+  ``PartCheckpointer`` saves values and chain state.  The port reads both
+  without JAX (``OrbaxPartReader.opt_state``, ``read_training_state``): one
+  more update with the same gradients, bridged, gives values and both
+  AdamW moments within 1e-6 of the JAX update, relative to the largest
+  magnitude of each (values, first moments, second moments), and the same
+  count, the LLM's scanned blocks unstacked.  The port's train tool resumes
+  from a JAX orbax directory given to ``--resume-from`` (that directory,
+  not ``<work_dir>/ckpts``: the JAX tool's F11) and found by
+  ``--auto-resume``, at the JAX step, and writes its own ``step_<N>``
+  after.  Refused by name: another optax chain, Adam and schedule counts
+  that differ, moments that do not cover the trained groups.  A process
+  that cannot import JAX reads the state.
 """
 
 import dataclasses
+import glob
 import os
+import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -35,14 +54,29 @@ from concurrent.futures import ThreadPoolExecutor
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
+from fixtures import make_fixture
+from openpsg_tpu.models.detectors.psg_v4 import PSGv4 as JaxPSGv4
+from openpsg_tpu.models.detectors.psg_v4 import PSGv4Config as JaxPSGv4Config
 from openpsg_tpu.models.llm import llama as jllama
 from openpsg_tpu.models.segmenter import fusion as jfusion
+from openpsg_tpu.train import trainer as jtrainer
+from openpsg_tpu.train.checkpoint import PartCheckpointer as JaxCheckpointer
 from openpsg_tpu_torch.bridge import load_jax_params, load_part, part_state_dict
+from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
 from openpsg_tpu_torch.models.llm import llama as tllama
 from openpsg_tpu_torch.models.segmenter import fusion as tfusion
+from openpsg_tpu_torch.tools import train as train_tool
+from openpsg_tpu_torch.train import trainer
+from openpsg_tpu_torch.train.checkpoint import (
+    OrbaxPartReader,
+    PartCheckpointer,
+    port_params,
+    read_training_state,
+)
 
 # the suite's workers share the cores, and these tensors are tiny: one torch
 # thread each, not a pool per worker spinning against the others
@@ -509,3 +543,243 @@ def test_jax_file_leaves_decode_exactly(tmp_path, fmt, monkeypatch):
         g = np.asarray(got[k])
         assert g.dtype == np.asarray(w).dtype, k
         np.testing.assert_array_equal(g, w, err_msg=str(k))
+
+
+# ------------------------------------------- resuming a JAX run's training
+TINY = os.path.join(REPO, "openpsg_tpu_torch/configs/psg/tiny_v4_ov.py")
+SCHED = dict(base_lr=1e-2, warmup_iters=3, warmup_ratio=0.1, step_epochs=(1,),
+             steps_per_epoch=4)
+PARAMWISE = dict(custom_keys={"qformer": dict(lr_mult=0.1)}, norm_decay_mult=0.0)
+
+
+def _traced_params(seed):
+    """The JAX tiny model's head and LLM trees, traced by ``jax.eval_shape``
+    of their initializers as ``PSGv4._init_params`` calls them (no program
+    compiles), filled with seeded float32 values."""
+
+    class Bare(JaxPSGv4):   # tokenizers and modules only
+        def _init_params(self, rng, pce):
+            return {}
+
+    jp = Bare(JaxPSGv4Config.tiny_test(), jax.random.PRNGKey(0))
+    c = jp.cfg
+    M, H4 = c.head.max_objects_padded, jp._model_hw()[0] // 4
+    Ti = jp.qf_parts["max_len"]
+    Lp = c.head.qformer.num_relation_queries + jp.llm_parts["max_len"]
+    key = jax.random.PRNGKey(0)
+    shapes = {
+        "head": jax.eval_shape(jp.head.init, key, jnp.zeros((H4, H4, c.segmenter.mask_dim)),
+                               jnp.zeros((M, H4, H4), bool), jnp.zeros((M,), bool),
+                               jnp.zeros((M * M, Ti), jnp.int32), jnp.zeros((M * M, Ti), bool)),
+        "llm": jax.eval_shape(lambda k: jp.llm.init(
+            k, token_ids=jnp.zeros((1, Lp), jnp.int32), attention_mask=jnp.ones((1, Lp), bool),
+            positions=jnp.zeros((1, Lp), jnp.int32)), key),
+    }
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda s: (0.1 * rng.standard_normal(s.shape)).astype(np.float32), shapes)
+
+
+def _zeros(fn, *args):
+    """``fn(*args)``'s result as zeros, traced (no program compiles): an
+    optimizer's initial state."""
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                  jax.eval_shape(fn, *args))
+
+
+def _numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _grads(tree, rng):
+    return jax.tree_util.tree_map(
+        lambda x: (0.02 * rng.standard_normal(x.shape)).astype(np.float32), tree)
+
+
+@jax.jit
+def _jax_update(grads, state, values, lr_mult, decay_mult):
+    """One update of the JAX ``make_optimizer`` chain with paramwise
+    multipliers (its five members), the multipliers passed in, so one
+    program serves every multiplier tree; with all multipliers 1 it computes
+    the four-member chain's update bit for bit (``make_optimizer``'s
+    docstring), whose state is the first four members."""
+    tx = jtrainer.make_optimizer(jtrainer.make_lr_schedule(**SCHED), max_norm=1.0,
+                                 weight_decay=0.05, lr_mult_tree=lr_mult,
+                                 decay_mult_tree=decay_mult)
+    upd, state = tx.update(grads, state, values)
+    return optax.apply_updates(values, upd), state
+
+
+_NO_JAX_RESUME = """
+import sys
+for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'openpsg_tpu'):
+    sys.modules[m] = None
+import torch
+from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
+from openpsg_tpu_torch.train.checkpoint import read_training_state
+ckpt_dir, out = sys.argv[1:]
+model = PSGv4(PSGv4Config.tiny_test(), seed=1, device='cpu')
+names = [f'head.{n}' for n, _ in model.head.named_parameters()]
+params, state, meta, step = read_training_state(model, ckpt_dir, names)
+print(step, state['count'])
+torch.save(dict(params=params, mu=state['mu'], nu=state['nu']), out)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_ckpts(tmp_path_factory):
+    """Seeded JAX values of the tiny model's head and LLM; JAX orbax
+    checkpoints after 3 updates of the chain with and without paramwise
+    multipliers, and the next update; the head alone, as ``tiny_v4_ov.py``
+    trains it; refused states; a process without JAX reading the head
+    checkpoint."""
+    root = tmp_path_factory.mktemp("resume")
+    tree = _traced_params(seed=0)
+    rng = np.random.default_rng(1)
+    out = dict(root=root, runs={})
+    for pw in (False, True):
+        ones = jax.tree_util.tree_map(lambda x: 1.0, tree)
+        lr, dec = jtrainer.paramwise_multipliers(tree, **PARAMWISE) if pw else (ones, ones)
+        values, state = tree, _zeros(jtrainer.make_optimizer(lambda c: 0.0, lr_mult_tree=lr,
+                                                             decay_mult_tree=dec).init, tree)
+        for _ in range(3):
+            values, state = _numpy(_jax_update(_grads(values, rng), state, values, lr, dec))
+        grads = _grads(values, rng)
+        nxt = _numpy(_jax_update(grads, state, values, lr, dec))
+        if not pw:
+            state = state[:4]
+        ck = JaxCheckpointer(str(root / f"ck_pw{int(pw)}"))
+        ck.save(3, values, state, {"epoch": 1})
+        ck.close()
+        out["runs"][pw] = dict(grads=grads, next=nxt)
+        if not pw:
+            head_state = state[:1] + (state[1]._replace(mu={"head": state[1].mu["head"]},
+                                                        nu={"head": state[1].nu["head"]}),) \
+                + state[2:]
+            head = {"head": values["head"]}
+    out["head_values"] = head
+    for name, st in (
+            ("ck_head", head_state),
+            ("ck_adamw", _zeros(optax.adamw(1e-4).init, head)),
+            ("ck_counts", head_state[:3] + (head_state[3]._replace(
+                count=head_state[3].count + 1),)),
+            ("ck_moments", state)):          # moments of the head and the LLM
+        ck = JaxCheckpointer(str(root / name))
+        ck.save(3, head, st, {"epoch": 1})
+        ck.close()
+    out["no_jax"] = subprocess.Popen(
+        [sys.executable, "-c", _NO_JAX_RESUME, str(root / "ck_head"), str(root / "nojax.pt")],
+        cwd=REPO, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO))
+    return out
+
+
+def _tiny_model():
+    return PSGv4(PSGv4Config.tiny_test(), seed=1, device="cpu")
+
+
+def _close(got, want, what):
+    """Every tensor within 1e-6 of the largest magnitude among ``want``'s
+    tensors (max-norm relative error of the whole state)."""
+    assert set(got) == set(want), what
+    want = {k: np.asarray(w) for k, w in want.items()}
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=1e-6 * scale,
+                                   err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("paramwise", [False, True])
+def test_one_more_update_matches_the_jax_update(jax_ckpts, paramwise):
+    run = jax_ckpts["runs"][paramwise]
+    model = _tiny_model()
+    reader = OrbaxPartReader(str(jax_ckpts["root"] / f"ck_pw{int(paramwise)}"))
+    assert reader.all_steps() == [3]
+    params = port_params(model, reader.params(3))
+    state = reader.opt_state(3, model)
+    assert state["count"] == 3
+    lr = dec = None
+    if paramwise:
+        paths = trainer.V4Trainer(model, trainable=("head", "llm")).jax_paths()
+        lr, dec = trainer.paramwise_multipliers(paths, **PARAMWISE)
+        assert {m for m in lr.values()} == {0.1, 1.0} and 0.0 in dec.values()
+    opt = trainer.make_optimizer(trainer.make_lr_schedule(**SCHED), max_norm=1.0,
+                                 weight_decay=0.05, lr_mult=lr, decay_mult=dec)
+    # the LLM's scanned blocks land unstacked, each moment where its weight lands
+    assert any(k.startswith("llm.core.layers.1.") for k in state["mu"])
+    opt.step(params, port_params(model, run["grads"]), state)
+    values, jstate = run["next"]
+    adam = jstate[1]
+    _close(params, port_params(model, values), "values")
+    _close(state["mu"], port_params(model, adam.mu), "first moments")
+    _close(state["nu"], port_params(model, adam.nu), "second moments")
+    assert state["count"] == int(adam.count) == int(jstate[3].count) == 4
+
+
+def _tool_cfg(tmp_path):
+    root = str(tmp_path / "data")
+    ann = make_fixture(root, n_images=4, hw=(64, 64))
+    cfg = str(tmp_path / "cfg.py")
+    with open(cfg, "w") as f:
+        f.write(f"_base_ = [{TINY!r}]\n"
+                f"data = dict(train=dict(ann_file={ann!r}, img_prefix={root!r}, "
+                f"seg_prefix={root!r}, pipeline=[]))\n"
+                "runner = dict(max_epochs=1)\nlog_config = dict(interval=1)\n")
+    return cfg
+
+
+@pytest.mark.parametrize("how", ["resume_from", "auto_resume"])
+def test_train_tool_resumes_a_jax_run(jax_ckpts, tmp_path, how):
+    """The tool continues the JAX run at its step.  ``--resume-from`` reads
+    the directory it names even where ``<work_dir>/ckpts`` holds another
+    run (F11: the JAX tool restores ``<work_dir>/ckpts`` whatever the path
+    given); ``--auto-resume`` finds the JAX steps in ``<work_dir>/ckpts``."""
+    cfg, wd = _tool_cfg(tmp_path), str(tmp_path / "wd")
+    jax_dir = str(jax_ckpts["root"] / "ck_head")
+    argv = [cfg, "--work-dir", wd, "--device", "cpu"]
+    if how == "resume_from":
+        train_tool.main(argv + ["--max-steps", "1"], model=_tiny_model())   # a port run at step 1
+        argv += ["--resume-from", jax_dir]
+    else:
+        shutil.copytree(jax_dir, os.path.join(wd, "ckpts"))
+        argv += ["--auto-resume"]
+    model = _tiny_model()
+    stats = train_tool.main(argv + ["--max-steps", "5"], model=model)
+    assert stats["steps"] == 2 and stats["saved_steps"] == [5]
+    ck = PartCheckpointer(os.path.join(wd, "ckpts"))
+    assert ck.latest_step() == 5
+    _, state, _, _ = ck.restore()
+    assert state["count"] == 5
+    text = "".join(open(p).read() for p in glob.glob(os.path.join(wd, "*.log")))
+    resumed_from = jax_dir if how == "resume_from" else os.path.join(wd, "ckpts")
+    assert f"resumed from {resumed_from} step 3 (AdamW count 3)" in text
+
+
+def test_refusals_are_named(jax_ckpts):
+    model = _tiny_model()
+    root = jax_ckpts["root"]
+    names = [f"head.{n}" for n, _ in model.head.named_parameters()]
+    with pytest.raises(ValueError, match="not the state of the JAX make_optimizer chain"):
+        read_training_state(model, str(root / "ck_adamw"), names)
+    with pytest.raises(ValueError, match="scale_by_adam's count 3 differs from "
+                                         "scale_by_learning_rate's count 4"):
+        read_training_state(model, str(root / "ck_counts"), names)
+    with pytest.raises(KeyError, match="first moments do not cover exactly the trainable"):
+        read_training_state(model, str(root / "ck_moments"), names)
+    # values, moments and count as the JAX run left them
+    params, state, meta, step = read_training_state(model, str(root / "ck_head"), names)
+    assert step == 3 and meta == {"epoch": 1} and state["count"] == 3
+    _close(params, port_params(model, jax_ckpts["head_values"]), "values")
+
+
+def test_reading_the_state_needs_no_jax(jax_ckpts):
+    proc = jax_ckpts["no_jax"]
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    assert out.strip().splitlines()[-1] == "3 3"
+    got = torch.load(jax_ckpts["root"] / "nojax.pt", weights_only=True)
+    _, want, _, _ = read_training_state(_tiny_model(), str(jax_ckpts["root"] / "ck_head"),
+                                        got["params"])
+    for k in ("mu", "nu"):
+        assert set(got[k]) == set(want[k])
+        assert all(torch.equal(got[k][n], want[k][n]) for n in want[k])

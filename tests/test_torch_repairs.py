@@ -38,12 +38,30 @@ def _int8(cfg, act_int8):
         head=dataclasses.replace(cfg.head, max_llm_forward_num=8))
 
 
+class _GivenParams(JaxPSGv4):
+    """A JAX model whose parameters are given, not initialized again."""
+
+    def __init__(self, cfg, rng, params):
+        self._given = params
+        super().__init__(cfg, rng)
+
+    def _init_params(self, rng, precomputed_class_embeds):
+        return self._given
+
+
 @pytest.fixture(scope="module")
 def int8_steps():
-    out = {}
+    out, params = {}, None
     for act in (False, True):
-        jp = JaxPSGv4(_int8(JaxPSGv4Config.tiny_test(), act), jax.random.PRNGKey(0))
-        params = _np(jp.params)
+        cfg = _int8(JaxPSGv4Config.tiny_test(), act)
+        if params is None:
+            jp = JaxPSGv4(cfg, jax.random.PRNGKey(0))
+            params = _np(jp.params)
+        else:
+            # act_int8 adds no parameter and draws no key (its branch needs
+            # >= 256 rows, which the initializers' trace does not reach):
+            # the weight-only model's parameters are this one's as well
+            jp = _GivenParams(cfg, jax.random.PRNGKey(0), params)
         model = PSGv4(_int8(PSGv4Config.tiny_test(), act), seed=0, device="cpu")
         load_jax_params(model, params)
         arrays = _batch(model.cfg, model.tokenizer, model.relation_names)

@@ -1,4 +1,4 @@
-"""The port's synthetic PSG fixture and its end-to-end selfcheck on the CPU.
+"""The port's synthetic PSG fixtures and its selfchecks on the CPU.
 
 ``openpsg_tpu_torch/utils/fixture.make_fixture`` writes the same bytes as
 ``tests/fixtures.make_fixture`` (images, panoptic PNGs, json) for the same
@@ -6,22 +6,52 @@ arguments.  ``openpsg_tpu_torch.tools.selfcheck_e2e`` runs its three phases
 end to end at a few steps (segmenter training, head and LLM training, the
 infer tool on the exported files, the grader); R@20 > 0 at its default
 steps is checked on the card.
+
+The knob-cost harness (``openpsg_tpu_torch.tools.selfcheck_knobs``) and its
+rich fixture, against the JAX harness (``tools/selfcheck_knobs.py``) and
+``tests/fixtures.make_rich_fixture``:
+
+* The port's ``make_rich_fixture`` writes the same bytes as the JAX
+  fixture (images, panoptic PNGs, json) for two argument sets.
+* The JAX harness runs with its model recorded, not built or compiled: a
+  ``PSGv4`` whose parameters are placeholders and whose ``infer`` records
+  each call, ``quantize_llama`` marking its result, the segmenter's step
+  functions stubbed (1 segmenter step, 0 relation steps).  Its geometry,
+  its six variants (names, order, encoder points per level, int8 LLM,
+  int8 activations, output directories, 8 images each) and its printed
+  object equal the port's (``harness_config``, ``VARIANTS``,
+  ``summarize``), and its exit rule is the port's.
+* The port's harness runs end to end on the CPU at 2 + 2 steps through its
+  command line: both losses fall, six variants are graded over the same 8
+  held-out images, the printed object and the ``KNOBCHECK`` line follow
+  the JAX rule, int8 activations take the int8 route at prefill.  Without
+  ``--device`` it asks for the card and raises here.
+
+Not held here: one variant on bridged JAX weights at the harness geometry
+against the JAX model.  The geometry (8 objects, 14 decoded pairs, 16 new
+tokens) is a JAX inference program no other test file compiles; the
+port's tiny ``infer`` is held against the JAX model's at
+``PSGv4Config.tiny_test()`` elsewhere (``test_torch_psg_v4.py``,
+``test_torch_interop.py``).
 """
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from openpsg_tpu_torch.tools import selfcheck_e2e
+from openpsg_tpu_torch.tools import selfcheck_e2e, selfcheck_knobs
 from openpsg_tpu_torch.train.checkpoint import PartCheckpointer
-from openpsg_tpu_torch.utils.fixture import make_fixture
+from openpsg_tpu_torch.utils.fixture import make_fixture, make_rich_fixture
 
 # the suite's workers share the cores, and these tensors are tiny: one torch
 # thread each, not a pool per worker spinning against the others
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _files(root):
@@ -73,3 +103,146 @@ def test_selfcheck_runs_end_to_end_on_the_cpu(tmp_path):
                                   model.class_embeds.detach().numpy())
     with open(os.path.join(root, "selfcheck_cfg.py")) as f:
         assert "freeze_layers=['openseed']" in f.read()
+
+
+# ------------------------------------------------------- the knob harness
+@pytest.mark.parametrize("kw", [dict(), dict(n_images=5, hw=(48, 80), grid=(2, 3), seed=3)])
+def test_rich_fixture_is_byte_equal_to_the_jax_one(tmp_path, kw):
+    from tests.fixtures import make_rich_fixture as jax_fixture
+
+    a = make_rich_fixture(str(tmp_path / "port"), **kw)
+    b = jax_fixture(str(tmp_path / "jax"), **kw)
+    assert os.path.basename(a) == os.path.basename(b) == "psg.json"
+    got, want = _files(tmp_path / "port"), _files(tmp_path / "jax")
+    assert set(got) == set(want) and len(got) == 2 * kw.get("n_images", 16) + 1
+    for name in want:
+        assert got[name] == want[name], name
+
+
+@pytest.fixture(scope="module")
+def jax_table(tmp_path_factory):
+    """The JAX harness's ``main`` with its model recorded → (the models it
+    built, in order, each with its config, the LLM tree it was given and
+    its infer calls; its printed object; its return code; its root)."""
+    import jax
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import selfcheck_knobs as jax_knobs
+
+    from openpsg_tpu.models.detectors import psg_v4 as jpsg
+    from openpsg_tpu.models.llm import llama as jllama
+    from openpsg_tpu.train.segmenter_trainer import SegmenterTrainer
+
+    made = []
+
+    class Recorded(jpsg.PSGv4):
+        """Tokenizers, tables and modules as the JAX model builds them;
+        placeholder parameters; ``infer`` records its call."""
+
+        def _init_params(self, rng, pce):
+            made.append(self)
+            self.calls = 0
+            return {"segmenter": {}, "head": {}, "llm": {}, "text": {},
+                    "class_embeds": np.zeros((len(self.class_names), 4), np.float32)}
+
+        def infer(self, image, img_shape):
+            self.calls += 1
+            return {"pan_results": np.zeros(image.shape[:2], np.int64),
+                    "rel_results": {"object_id_list": [], "relation": []}}
+
+    def steps(self, opt):
+        def cost(params, batch):
+            b, m = batch.gt_valid.shape
+            return np.zeros((b, m, m), np.float32)
+        return cost, lambda params, state, batch, match: (params, state, {"loss": 0.0})
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jpsg, "PSGv4", Recorded)
+    mp.setattr(jllama, "quantize_llama", lambda tree: {"quantize_llama": tree})
+    mp.setattr(SegmenterTrainer, "make_step_fns", steps)
+    root = str(tmp_path_factory.mktemp("jax_knobs"))
+    printed = []
+    mp.setattr("builtins.print", lambda *a, **k: printed.append(" ".join(map(str, a))))
+    try:
+        rc = jax_knobs.main(root, seg_steps=1, rel_steps=0)
+    finally:
+        mp.undo()
+        sys.path.remove(os.path.join(REPO, "tools"))
+    summary = json.loads(next(line for line in printed if line.startswith('{"harness"')))
+    assert jax.default_backend() == "cpu"
+    return made, summary, rc, root
+
+
+def test_geometry_and_variants_are_the_jax_harness(jax_table):
+    made, summary, rc, root = jax_table
+    assert len(made) == 1 + len(selfcheck_knobs.VARIANTS)
+    port, jcfg = selfcheck_knobs.harness_config(), made[0].cfg
+    for f in ("input_hw", "max_new_tokens", "object_mask_thr", "iou_thr", "decode_early_exit",
+              "fusion_stride", "fusion_candidates"):
+        assert getattr(port, f) == getattr(jcfg, f), f
+    for part, fields in (("segmenter", ("num_queries", "total_levels", "num_points", "dim",
+                                        "enc_points_per_level")),
+                         ("head", ("max_object_num", "max_objects_padded", "top_pairs",
+                                   "sampled_qformer_batch_size", "max_llm_forward_num")),
+                         ("llm", ("dim", "n_layers", "n_heads", "quant", "act_int8"))):
+        for f in fields:
+            assert getattr(getattr(port, part), f) == getattr(getattr(jcfg, part), f), (part, f)
+    # the matrix: names in order, then per variant its knobs and its output
+    assert list(summary["R@20"]) == list(selfcheck_knobs.VARIANTS)
+    dirs = sorted(d for d in os.listdir(root) if d.startswith("out_"))
+    assert dirs == sorted(sub for sub, *_ in selfcheck_knobs.VARIANTS.values())
+    for m, (name, (_, points, quant, act)) in zip(made[1:], selfcheck_knobs.VARIANTS.items()):
+        c = m.cfg
+        assert (c.segmenter.enc_points_per_level, c.llm.quant, c.llm.act_int8) == (
+            points, quant, act), name
+        assert ("quantize_llama" in m.params["llm"]) == quant, name
+        assert m.calls == 8, name
+
+
+def test_summary_and_exit_rule_are_the_jax_harness(jax_table):
+    _, summary, rc, _ = jax_table
+    matrix = {k: {"R@20": summary["R@20"][k], "mR@20": summary["mR@20"][k],
+                  "R@50": summary["R@50"][k]} for k in summary["R@20"]}
+    port, chance20 = selfcheck_knobs.summarize(matrix)
+    assert port == summary
+    assert summary["harness"]["chance_R@20_pct"] == 0.64 and chance20 == 100 * 20 / 3136
+    # the JAX harness returns 1 on its recorded model: bf16 R@20 0 is below
+    # five times chance
+    assert rc == 1 and summary["R@20"]["bf16"] == 0.0
+
+
+def test_harness_runs_end_to_end_on_the_cpu(tmp_path, capsys, monkeypatch):
+    root = str(tmp_path / "knobs")
+    runs = []
+    real_run = selfcheck_knobs.run
+    monkeypatch.setattr(selfcheck_knobs, "run",
+                        lambda *a, **k: runs.append(real_run(*a, **k)) or runs[-1])
+    rc = selfcheck_knobs.main(["--device", "cpu", "--seg-steps", "2", "--rel-steps", "2",
+                               "--root", root])
+    res = runs[0]
+    lines = capsys.readouterr().out.strip().splitlines()
+    summary = json.loads(lines[-2])
+    assert summary == res["summary"] and list(summary["R@20"]) == list(selfcheck_knobs.VARIANTS)
+    bf16 = summary["R@20"]["bf16"]
+    ok = 5 * summary["harness"]["chance_R@20_pct"] < bf16 < 99.5
+    assert lines[-1].startswith("KNOBCHECK " + ("PASS" if ok else "FAIL"))
+    assert rc == (0 if ok else 1) and res["ok"] == ok
+    for key in ("seg_losses", "rel_losses"):
+        assert res[key][-1]["loss"] < res[key][0]["loss"], key
+    assert [d["image_id"] for d in res["held_out"]] == [str(i) for i in range(8, 16)]
+    for name, (sub, _, quant, act) in selfcheck_knobs.VARIANTS.items():
+        assert len(res["results"][name]) == 8, name
+        with open(os.path.join(root, sub, "submission", "relation.json")) as f:
+            assert len(json.load(f)) == 8, name
+        routes = res["qdense"][name]
+        # 14 pairs × the prompt: every prefill has at least 256 rows
+        assert (routes["int8"] > 0) == act and (routes["weight_only"] > 0) == quant, name
+    assert set(res["seconds"]) == {"A", "B", "C"}
+
+
+def test_the_card_is_the_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfcheck_knobs.main(["--root", str(tmp_path / "k")])
+    assert not (tmp_path / "k").exists()

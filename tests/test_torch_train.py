@@ -253,10 +253,20 @@ def _jax_grads(jp, params, arrays, trainable_keys):
     return loss_dict, jax.tree_util.tree_map(np.asarray, grads)
 
 
-def _check_step(jp, params, trainable_keys):
+@pytest.fixture(scope="module")
+def jax_step(models):
+    """The batch, and the JAX losses and gradients of the head and the LLM
+    on it: one JAX program serves both recipes (a group's gradient does not
+    depend on which other groups train)."""
+    jp, params = models
     model = _port(params)
     arrays = _batch(model.cfg, model.tokenizer, model.relation_names)
-    want_loss, want_grads = _jax_grads(jp, params, arrays, trainable_keys)
+    return (arrays,) + _jax_grads(jp, params, arrays, ("head", "llm"))
+
+
+def _check_step(params, jax_step, trainable_keys):
+    model = _port(params)
+    arrays, want_loss, want_grads = jax_step
     tr = trainer.V4Trainer(model, trainable=trainable_keys)
     got_loss, got_grads = tr.gradients(trainer.TrainBatch.from_numpy(arrays, "cpu"))
     assert set(got_loss) == set(want_loss)
@@ -276,42 +286,44 @@ def _check_step(jp, params, trainable_keys):
                 continue
             scale = float(np.abs(w).max())
             assert float(np.abs(g - w).max()) <= 1e-4 * scale, (name, scale)
-    return model, tr, arrays
+    return model, tr, arrays, {k: want_grads[k] for k in trainable_keys}
 
 
-def test_train_step_matches_jax(models):
+def test_train_step_matches_jax(models, jax_step):
     """One step, B=2: the loss dict and every head gradient leaf, then the
-    optimizer's update against the JAX train step's."""
-    jp, params = models
-    model, tr, arrays = _check_step(jp, params, ("head",))
+    optimizer's update against the JAX train step's (``make_train_step``:
+    the same gradients, then the optimizer's update, applied here to the
+    JAX gradients already computed, so the forward and backward compile
+    once)."""
+    _, params = models
+    model, tr, arrays, jgrads = _check_step(params, jax_step, ("head",))
     cross = tr.params["head.qformer.cross_attn0.k.weight"]
     assert cross.requires_grad
     sched = dict(steps_per_epoch=10)
     jopt = jtrainer.make_optimizer(jtrainer.make_lr_schedule(**sched))
-    step = jax.jit(jtrainer.V4Trainer(jp).make_train_step(jopt))
     trainable = {"head": params["head"]}
-    frozen = {k: v for k, v in params.items() if k != "head"}
-    new, _, jmetrics = step(trainable, jopt.init(trainable), frozen,
-                            jtrainer.TrainBatch(**{k: jnp.asarray(v) for k, v in arrays.items()}))
+    new = jax.jit(lambda g, p: optax.apply_updates(p, jopt.update(g, jopt.init(p), p)[0]))(
+        jgrads, trainable)
     opt = trainer.make_optimizer(trainer.make_lr_schedule(**sched))
     metrics = tr.train_step(trainer.TrainBatch.from_numpy(arrays, "cpu"), opt,
                             opt.init(tr.master))
-    assert float(metrics["grad_norm"]) == pytest.approx(float(jmetrics["grad_norm"]), rel=1e-4)
+    assert float(metrics["grad_norm"]) == pytest.approx(float(optax.global_norm(jgrads)),
+                                                        rel=1e-4)
     for name, w in part_state_dict("head", jax.device_get(new["head"])).items():
         np.testing.assert_allclose(model.head.state_dict()[name].numpy(), w, atol=1e-6, rtol=0,
                                    err_msg=name)
 
 
-def test_scratch_recipe_trains_the_llm(models):
+def test_scratch_recipe_trains_the_llm(models, jax_step):
     """``tiny_v4_scratch``: the same groups split as in JAX (the LLM
     trainable), and the LLM's gradients match too."""
-    jp, params = models
+    _, params = models
     cfg = Config.fromfile(os.path.join(REPO, "openpsg_tpu_torch/configs/psg/tiny_v4_scratch.py"))
     freeze = checkpoint.freeze_keys_from_config(cfg)
     assert freeze == jckpt.freeze_keys_from_config(cfg, params, True) == {
         "segmenter", "text", "class_embeds"}
     assert checkpoint.trainable_groups(cfg) == ("head", "llm")
-    _check_step(jp, params, ("head", "llm"))
+    _check_step(params, jax_step, ("head", "llm"))
 
 
 def test_bf16_head_keeps_float32_masters():

@@ -178,6 +178,21 @@ Phases, each fatal on failure:
      then the tiny float32 Llama with a ``decouple_label_masks``
      ``full_mask``, with and without a cache, card against CPU; and whether
      ``tensorstore`` and ``msgpack`` (the JAX-file readers) import here.
+ 14. the measurement tools (``openpsg_tpu_torch/tools/``) at 1344², each
+     through its ``run`` at BENCH_SMOKE_ITERS samples: (a) ``bench_stages``
+     on phase 12a's int8 deployment model, every stage (segmenter parts,
+     one deformable-attention call at encoder and at decoder geometry,
+     fusion, the Q-Former, prefill, prefill + decode, the LLM
+     microbenches), with deformable attention's share of the segmenter
+     and ``infer``'s segmenter ms beside the split's sum, the shared-KV
+     kernel's hopper launches counted as path ``bench_stages``; (b)
+     ``probe_msda_variants`` on the JAX tool's uniform inputs and on that
+     model's own first encoder call, every variant (v2k: one launch of the
+     row-gather kernel, path ``probe_msda``) held against v0 before it is
+     timed; (c) ``bench_train`` at its default recipe (frozen int8
+     Llama-2-7B, 32 layers; no launch); (d) ``bench_family`` for v1, v2 and
+     v3 (no launch); (e) ``bench_host`` at 1344².  Every record names the
+     card and its power limit as ``nvidia-smi`` does.
 
 The last three lines are the JSON object ``{"kernels": [...]}``, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -639,11 +654,17 @@ def main() -> int:
 
     # ---- 13. parallelism on the card
     phase_parallel(torch, skv, gat, train_metrics, deploy)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the measurement tools
+    phase_bench_tools(torch, skv, gat, deploy)
+    del deploy
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
 
     for k in (skv, gat):
         for path in ("serve", "serve_learned", "predict", "pvsg", "openset", "knobs",
-                     "infer_batch_tool", "infer_batch_dp", "pair_sharded", "serve_dp"):
+                     "infer_batch_tool", "infer_batch_dp", "pair_sharded", "serve_dp",
+                     "bench_stages", "probe_msda", "bench_train", "bench_family"):
             assert path in k["launches_by_path"], (k["name"], path)
         k["launches"] = sum(k["launches_by_path"].values())
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3804,6 +3825,166 @@ def llama_full_mask(torch):
         + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items())
         + ("" if have["tensorstore"] else " (so reading a JAX orbax checkpoint, for "
            "inference or to resume a JAX run's training, runs in the CPU tests only)"))
+
+
+BENCH_SMOKE_ITERS = 2   # samples per stage, variant, step and family in phase 14
+BENCH_HOST_SMOKE_ITERS = 5
+BENCH_FAMILIES = ("v1", "v2", "v3")
+
+
+def phase_bench_tools(torch, skv, gat, deploy):
+    """Phase 14: the port's five measurement tools at 1344² on the card, each
+    through its ``run`` at BENCH_SMOKE_ITERS samples (their own defaults are
+    run alone): (a) ``bench_stages`` on ``deploy`` (phase 12a's int8
+    deployment model), every stage, kernel 1 launched as path
+    ``bench_stages``; (b) ``probe_msda_variants`` on the JAX tool's uniform
+    inputs and on ``deploy``'s own first encoder call (its points per level),
+    every variant held against v0 before it is timed, kernel 2 launched as
+    path ``probe_msda``; (c) ``bench_train`` at its default recipe (frozen
+    int8 Llama-2-7B, 32 layers), no launch (path ``bench_train``); (d)
+    ``bench_family`` for v1, v2 and v3, no launch (path ``bench_family``);
+    (e) ``bench_host`` at 1344².  Each record must carry the card's name and
+    power limit."""
+    import math
+
+    import numpy as np
+
+    from openpsg_tpu_torch.models.detectors.psg_v4 import PSGv4, PSGv4Config
+    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.tools import (
+        bench_family,
+        bench_host,
+        bench_stages,
+        bench_train,
+        probe_msda_variants as probe,
+    )
+    from openpsg_tpu_torch.utils.profiling import device_record
+
+    t_phase = time.perf_counter()
+    label = device_record("cuda")
+    if label != smi_line():
+        raise AssertionError(f"device record {label!r} is not nvidia-smi's {smi_line()!r}")
+    iters = BENCH_SMOKE_ITERS
+    H, W = BUCKET
+    times = {}
+
+    def finite(name, x):
+        if not (isinstance(x, (int, float)) and math.isfinite(x) and x > 0):
+            raise AssertionError(f"{name}: {x!r} is not a positive finite number")
+
+    def fresh():
+        torch.cuda.synchronize()
+        fca.reset_launches()
+        mg.sparse_row_gather.launches = 0
+
+    # 14a
+    t0 = time.perf_counter()
+    fresh()
+    rec = bench_stages.run(deploy, iters=iters, device_label=label)
+    launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "bench_stages")
+    sc = deploy.cfg.segmenter
+    want = ["swin_backbone", f"pixel_decoder_{sc.enc_layers}L", "msda_core_1layer_encoder_geom",
+            "msda_core_1layer_decoder_geom", f"query_decoder_{sc.dec_layers}L_{sc.num_queries}q"]
+    missing = [n for n in want if n not in rec["stages_ms"]]
+    if missing or len(rec["stages_ms"]) != 17:
+        raise AssertionError(f"bench_stages stages {sorted(rec['stages_ms'])}: missing {missing}")
+    for name, ms in rec["stages_ms"].items():
+        finite(f"bench_stages {name}", ms)
+    if by_variant["simple"] or by_variant["hopper"] < 2 or gathers:
+        raise AssertionError(f"bench_stages launches: shared-KV {by_variant}, gather {gathers}")
+    if rec["flash_shared_kv_cross_attn_launches_by_variant"] != by_variant:
+        raise AssertionError("bench_stages' own launch count differs from the counter's")
+    share = rec["msda_share_of_segmenter"]
+    log(f"[bench] 14a bench_stages on the int8 deployment model at {H}x{W}: "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in rec["stages_ms"].items())
+        + f" ms; segmenter split {rec['segmenter_split_sum_ms']:.1f} ms against infer's "
+        f"segmenter {rec['infer_segmenter_ms']:.1f} ms; deformable attention's share of the "
+        f"segmenter: encoder {share['encoder']:.3f}, decoder {share['decoder']:.3f}; decode "
+        f"trips {rec['decode_trips']}; shared-KV launches {by_variant}")
+    times["a"] = time.perf_counter() - t0
+
+    # 14b
+    t0 = time.perf_counter()
+    fresh()
+    shapes = probe.encoder_shapes(H)
+    value, loc, aw = probe.uniform_inputs(shapes, "cuda")
+    recs = [probe.run(value, shapes, loc, aw, iters=iters, label="uniform", device_label=label)]
+    del value, loc, aw
+    torch.cuda.empty_cache()
+    img = torch.as_tensor(np.random.default_rng(0).integers(0, 255, (H, W, 3)).astype(np.uint8),
+                          device="cuda")
+    _, msda = first_msda_call(lambda: deploy.segment(img))
+    recs.append(probe.run(*msda, points_per_level=sc.enc_points_per_level, iters=iters,
+                          label="main path: first encoder call", device_label=label))
+    del msda
+    torch.cuda.empty_cache()
+    launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "probe_msda")
+    if gathers < 1 or launches:
+        raise AssertionError(f"probe launches: gather {gathers}, shared-KV {launches}")
+    for r in recs:
+        if sorted(r["variants"]) != sorted(probe.VARIANTS):
+            raise AssertionError(f"probe variants {sorted(r['variants'])}")
+        for v, e in r["variants"].items():
+            finite(f"probe {v}", e["median_ms"])
+        log(f"[bench] 14b probe_msda_variants, {r['inputs']} inputs "
+            f"{r['geometry']}: " + ", ".join(
+                f"{v} {e['median_ms']:.3f} ms (IQR {e['q1_ms']:.3f}-{e['q3_ms']:.3f}, bound "
+                f"{e['bound_ms']:.4f}" + (f", vs v0 {e['max_abs_diff_vs_v0']:.3g} <= "
+                                          f"{e['tol']:.3g}" if "tol" in e else "") + ")"
+                for v, e in r["variants"].items())
+            + f"; sparse_row_gather launches {r['sparse_row_gather_launches']}")
+    times["b"] = time.perf_counter() - t0
+
+    # 14c
+    t0 = time.perf_counter()
+    fresh()
+    model = PSGv4(bench_stages.model_config(H), seed=0, device="cuda")
+    rec = bench_train.run(model, iters=iters, device_label=label)
+    launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "bench_train")
+    finite("bench_train s/step", rec["value"])
+    for loss in rec["losses"]:
+        finite("bench_train loss", loss)
+    if launches or gathers:
+        raise AssertionError(f"bench_train launches: shared-KV {by_variant}, gather {gathers}")
+    log(f"[bench] 14c bench_train {rec['metric']}: {rec['value']:.4f} s/step (IQR "
+        f"{rec['q1_s']:.4f}-{rec['q3_s']:.4f}), peak {rec['peak_gib']:.2f} GiB, losses "
+        f"{[round(x, 4) for x in rec['losses']]}, shared-KV launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    times["c"] = time.perf_counter() - t0
+
+    # 14d
+    t0 = time.perf_counter()
+    fresh()
+    for fam in BENCH_FAMILIES:
+        model, build_s = bench_family.build(fam, "cuda")
+        rec = bench_family.run(model, fam, str(H), iters, (H, W), build_s, label)
+        finite(f"bench_family {fam}", rec["value"])
+        log(f"[bench] 14d bench_family {rec['metric']}: {rec['value']:.3f} img/s "
+            f"({rec['detail']['ms_per_image']:.1f} ms, IQR {rec['detail']['q1_ms']:.1f}-"
+            f"{rec['detail']['q3_ms']:.1f}), built in {build_s:.1f} s, peak "
+            f"{rec['detail']['peak_gib']:.2f} GiB")
+        del model
+        torch.cuda.empty_cache()
+    launches, by_variant, gathers = read_path_launches(fca, mg, skv, gat, "bench_family")
+    if launches or gathers:
+        raise AssertionError(f"bench_family launches: shared-KV {by_variant}, gather {gathers}")
+    times["d"] = time.perf_counter() - t0
+
+    # 14e
+    t0 = time.perf_counter()
+    pipe = PSGv4(PSGv4Config.tiny_test(), seed=0, device="cuda")
+    rec = bench_host.run(pipe, H, BENCH_HOST_SMOKE_ITERS, device_label=label)
+    for key in ("postprocess_ms", "paint_indexed_ms", "png_palette_ms", "writer_add_ms"):
+        finite(f"bench_host {key}", rec[key])
+    log(f"[bench] 14e bench_host at {H}: infer host path {rec['infer_host_ms_per_image']:.2f} "
+        f"ms per image (postprocess {rec['postprocess_ms']:.2f}, writer {rec['writer_add_ms']:.2f}"
+        f"), serve host path {rec['serve_host_ms_per_image']:.2f} (paint "
+        f"{rec['paint_indexed_ms']:.2f}, PNG {rec['png_palette_ms']:.2f}, base64 "
+        f"{rec['serve_b64_ms']:.3f}), on {rec['host']}")
+    times["e"] = time.perf_counter() - t0
+    log(f"[bench] phase 14 in {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"14{k} {v:.1f} s" for k, v in times.items()) + ")")
 
 
 if __name__ == "__main__":

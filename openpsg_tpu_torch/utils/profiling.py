@@ -1,8 +1,10 @@
 """Tracing support (counterpart of ``openpsg_tpu/utils/profiling.py``):
 ``--profile DIR`` wraps the hot region in a ``torch.profiler`` trace (CPU
 and, on the card, CUDA activities) written as a Chrome trace; a wall-clock
-section timer whose sections appear in that trace by name; and the share
-of a section's time in which the card ran a kernel."""
+section timer whose sections appear in that trace by name; the share of a
+section's time in which the card ran a kernel; and the measurement tools'
+sampling (:func:`time_samples`, :func:`sample_stats`), the record of the
+card they ran on (:func:`device_record`) and its published peaks."""
 
 from __future__ import annotations
 
@@ -13,6 +15,11 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+# one NVIDIA H100 SXM's published peaks (data sheet; at its 700 W limit):
+# HBM bytes per second, float32 FLOP per second outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 @contextlib.contextmanager
@@ -87,3 +94,78 @@ def device_busy(trace_path: str, window: str) -> Tuple[float, float]:
     total = sum(b - a for a, b in wins)
     busy = sum(max(0.0, min(b, wb) - max(a, wa)) for a, b in kernels for wa, wb in wins)
     return busy * 1e-6, total * 1e-6      # trace times are in µs
+
+
+def sample_stats(samples_ms) -> Dict[str, float]:
+    """Median, quartiles and interquartile range of a list of samples (ms),
+    the quartiles linearly interpolated (``numpy.percentile``'s default)."""
+    import numpy as np
+
+    if len(samples_ms) == 0:
+        raise ValueError("no samples")
+    q1, med, q3 = (float(v) for v in np.percentile(np.asarray(samples_ms, np.float64),
+                                                   [25, 50, 75]))
+    return {"median_ms": med, "q1_ms": q1, "q3_ms": q3, "iqr_ms": q3 - q1,
+            "samples_ms": [float(s) for s in samples_ms]}
+
+
+def time_samples(fn, iters: int, device, launches: Optional[int] = None) -> Dict[str, float]:
+    """One warm-up call of ``fn()``, then ``iters`` samples → :func:`sample_stats`.
+
+    ``launches=None`` (a stage, host work included): each sample is a host
+    clock around one call that ends in ``torch.cuda.synchronize()``.
+    ``launches=n`` (pure device work: a kernel, a microbench): each sample
+    is CUDA events around ``n`` back-to-back calls, divided by ``n``.  On
+    the CPU both read the host clock (``n`` calls per sample for the
+    latter)."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    fn()
+    sync()
+    samples = []
+    for _ in range(max(int(iters), 1)):
+        if launches is None:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        elif cuda:
+            with torch.cuda.device(dev):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(launches):
+                    fn()
+                b.record()
+                b.synchronize()
+            samples.append(a.elapsed_time(b) / launches)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            samples.append((time.perf_counter() - t0) * 1e3 / launches)
+    return sample_stats(samples)
+
+
+def device_record(device) -> str:
+    """The device a measurement ran on: ``"cpu"``, or the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (the name alone, with the limit
+    "not read", where ``nvidia-smi`` cannot be run)."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        if out:
+            return out.splitlines()[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"

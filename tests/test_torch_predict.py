@@ -262,7 +262,8 @@ def test_extractor_frames_byte_equal_jax(tmp_path, monkeypatch):
 
 
 NEW_TOOLS = ("serve", "predict", "parse_predict", "pvsg/extractor", "pvsg/infer_video",
-             "selfcheck_openset")
+             "selfcheck_openset", "bench_stages", "probe_msda_variants", "bench_train",
+             "bench_family", "bench_host")
 
 
 def test_port_sources_import_no_jax():

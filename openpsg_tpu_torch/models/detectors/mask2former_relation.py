@@ -40,7 +40,7 @@ from openpsg_tpu_torch.data.vocab import (
     RELATION_CLASSES,
 )
 from openpsg_tpu_torch.models.common import init_params
-from openpsg_tpu_torch.models.detectors.psg_v4 import _stage, select_objects
+from openpsg_tpu_torch.models.detectors.psg_v4 import select_objects
 from openpsg_tpu_torch.models.relation.head_v1 import HeadV1Config, RelationHeadV1
 from openpsg_tpu_torch.models.relation.head_v2 import HeadV2Config, RelationHeadV2
 from openpsg_tpu_torch.models.relation.head_v3 import (
@@ -62,6 +62,7 @@ from openpsg_tpu_torch.ops.mask_ops import (
     masks_from_idmap,
 )
 from openpsg_tpu_torch.parallel.comm import dp_map
+from openpsg_tpu_torch.utils.profiling import span
 
 # the config ``model.type`` names this class serves (mmdet's registry names)
 DETECTOR_TYPES = ("Mask2FormerRelation", "Mask2FormerRelationV2", "OpenSeeDRelation")
@@ -408,16 +409,18 @@ class PSGMask2FormerRelation:
         bucket) and its valid (h, w) → pan_results, rel_results,
         rel_scores.  ``stage_times``: if a dict, receives per-stage wall ms
         (segmenter, fusion_select, head), synchronizing the card around
-        each."""
+        each.  The call is the span ``psg.infer``, each stage a span inside
+        it (:func:`span`)."""
         dev = self.device
-        image = torch.as_tensor(image_u8, device=dev)
-        with _stage(stage_times, "segmenter", dev):
-            seg = self.segment(image)
-        with _stage(stage_times, "fusion_select", dev):
-            sel = self.fuse_select(seg, image.shape[:2], img_hw)
-        with _stage(stage_times, "head", dev):
-            out = self.relation_tail(seg["mask_features"], *sel)
-        return self.postprocess({k: v.cpu().numpy() for k, v in out.items()})
+        with span("infer"):
+            image = torch.as_tensor(image_u8, device=dev)
+            with span("segmenter", stage_times, dev):
+                seg = self.segment(image)
+            with span("fusion_select", stage_times, dev):
+                sel = self.fuse_select(seg, image.shape[:2], img_hw)
+            with span("head", stage_times, dev):
+                out = self.relation_tail(seg["mask_features"], *sel)
+            return self.postprocess({k: v.cpu().numpy() for k, v in out.items()})
 
     def infer_gt(self, image_u8, gt_masks, gt_oids, gt_valid) -> Dict[str, Any]:
         """Ground-truth-mask ablation (``_infer_gt_jit``): the segmenter runs

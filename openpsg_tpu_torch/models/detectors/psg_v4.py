@@ -21,9 +21,7 @@ the class names, or a precomputed ``.npy`` matrix.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,6 +64,7 @@ from openpsg_tpu_torch.models.segmenter.openseed import (
     normalize_image,
 )
 from openpsg_tpu_torch.ops.mask_ops import downsample_nearest
+from openpsg_tpu_torch.utils.profiling import span
 
 _INT_SENTINEL = np.iinfo(np.int32).max
 
@@ -187,22 +186,6 @@ def resolve_vocabulary(cfg: PSGv4Config, class_names: List[str], relation_names:
                                                           tokenizer.vocab_size))
     cfg = dataclasses.replace(cfg, head=head_cfg, llm=llm_cfg)
     return cfg, tokenizer, qf_tokenizer, qf_parts, llm_parts
-
-
-@contextlib.contextmanager
-def _stage(times: Optional[Dict[str, float]], name: str, device: torch.device):
-    """Record the stage's wall time in ms (synchronizing the card) when
-    ``times`` is a dict; otherwise do nothing."""
-    if times is None:
-        yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    times[name] = times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
 class PSGv4:
@@ -461,19 +444,21 @@ class PSGv4:
         top-K prefixes then go through ONE prefill and greedy decode as a
         flat [N·K] batch, which exits early only when all N·K sequences hit
         EOS.  Every image's ``decode_steps`` is that joint trip count.
-        ``stage_times`` sums each stage over the images."""
+        ``stage_times`` sums each stage over the images.  The call is the
+        span ``psg.infer``, each stage a span inside it (:func:`span`)."""
         dev = self.device
-        pre = []
-        for image_u8, img_hw in zip(images, img_hws):
-            image = torch.as_tensor(image_u8, device=dev)
-            with _stage(stage_times, "segmenter", dev):
-                seg = self.segment(image)
-            with _stage(stage_times, "fusion_select", dev):
-                sel = self.fuse_select(seg, img_hw)
-            with _stage(stage_times, "head", dev):
-                pre.append(self.tail_pre(seg["mask_features"], *sel))
-            del seg, sel
-        return self._decode_postprocess(pre, trip_budget, stage_times)
+        with span("infer"):
+            pre = []
+            for image_u8, img_hw in zip(images, img_hws):
+                image = torch.as_tensor(image_u8, device=dev)
+                with span("segmenter", stage_times, dev):
+                    seg = self.segment(image)
+                with span("fusion_select", stage_times, dev):
+                    sel = self.fuse_select(seg, img_hw)
+                with span("head", stage_times, dev):
+                    pre.append(self.tail_pre(seg["mask_features"], *sel))
+                del seg, sel
+            return self._decode_postprocess(pre, trip_budget, stage_times)
 
     def infer_batch(self, images, img_hws, trip_budget: Optional[int] = None,
                     mesh=None) -> List[Dict[str, Any]]:
@@ -540,7 +525,7 @@ class PSGv4:
         flattened [N·K] prefixes → N postprocessed result dicts."""
         outs, prefixes, pmasks = zip(*pre)
         K = prefixes[0].shape[0]
-        with _stage(stage_times, "decode", self.device):
+        with span("decode", stage_times, self.device):
             toks, scores, trips = self.tail_decode(torch.cat(prefixes), torch.cat(pmasks),
                                                    trip_budget)
         results = []

@@ -5,7 +5,10 @@ One cache-free prefill over the whole [pairs, prefix] batch (last logit
 only), then single-token steps: HF positions ``cumsum(mask) - 1``, EOS
 early exit, tokens after a sequence's EOS emitted as ``pad_id``, greedy
 log-prob scores.  ``trip_budget`` is a runtime cap on the number of decode
-steps, read on every call.
+steps, read on every call.  The prefill (the forward, the cache's
+allocation and fill, the first pick) is the span ``psg.prefill`` and each
+step one ``psg.trip``; the early-exit test, which waits for the card, lies
+between them (``utils/profiling.span``).
 
 A tensor-parallel LLM (``parallel.sharding.shard_params``) decodes the
 same way on every tp rank: its cache holds the rank's kv heads, and the
@@ -20,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from openpsg_tpu_torch.models.llm.llama import LlamaWithEmbeddings
+from openpsg_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -49,21 +53,21 @@ def greedy_decode(
     key_positions = torch.cat(
         [positions, torch.zeros(B, max_new_tokens, dtype=torch.int64, device=dev)], dim=1)
 
-    logits, (k0, v0) = model(input_embeds=prefix_embeds, attention_mask=prefix_mask,
-                             positions=positions, last_logit_only=True)
-    shape = (c.n_layers, B, S) + tuple(k0.shape[3:])     # the rank's kv heads
-    cache = (torch.zeros(shape, dtype=c.dtype, device=dev),
-             torch.zeros(shape, dtype=c.dtype, device=dev))
-    cache[0][:, :, :Lp] = k0
-    cache[1][:, :, :Lp] = v0
-
     rows = torch.arange(B, device=dev)
 
     def pick(lg):
         tok = torch.argmax(lg, dim=-1)
         return tok, torch.log_softmax(lg, dim=-1)[rows, tok]
 
-    tok, score = pick(logits[:, -1])
+    with span("prefill"):
+        logits, (k0, v0) = model(input_embeds=prefix_embeds, attention_mask=prefix_mask,
+                                 positions=positions, last_logit_only=True)
+        shape = (c.n_layers, B, S) + tuple(k0.shape[3:])     # the rank's kv heads
+        cache = (torch.zeros(shape, dtype=c.dtype, device=dev),
+                 torch.zeros(shape, dtype=c.dtype, device=dev))
+        cache[0][:, :, :Lp] = k0
+        cache[1][:, :, :Lp] = v0
+        tok, score = pick(logits[:, -1])
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     toks = torch.full((B, max_new_tokens), pad_id, dtype=torch.int32, device=dev)
     scores = torch.zeros(B, max_new_tokens, dtype=torch.float32, device=dev)
@@ -73,18 +77,19 @@ def greedy_decode(
     while t < limit:
         if early_exit and bool(torch.all(done | (tok == eos_id))):
             break
-        hit_eos = tok == eos_id
-        stop = done | hit_eos
-        toks[:, t] = torch.where(stop, torch.full_like(tok, pad_id), tok).to(torch.int32)
-        scores[:, t] = torch.where(stop, torch.zeros_like(score), score)
-        done = stop
-        slot = Lp + t
-        key_mask[:, slot] = True
-        pos = (n_real + t)[:, None]
-        key_positions[:, slot] = pos[:, 0]
-        logits, _ = model(input_embeds=model.embed(tok[:, None]), attention_mask=key_mask,
-                          positions=pos, cache=cache, cache_index=slot,
-                          key_positions=key_positions)
-        tok, score = pick(logits[:, 0])
+        with span("trip"):
+            hit_eos = tok == eos_id
+            stop = done | hit_eos
+            toks[:, t] = torch.where(stop, torch.full_like(tok, pad_id), tok).to(torch.int32)
+            scores[:, t] = torch.where(stop, torch.zeros_like(score), score)
+            done = stop
+            slot = Lp + t
+            key_mask[:, slot] = True
+            pos = (n_real + t)[:, None]
+            key_positions[:, slot] = pos[:, 0]
+            logits, _ = model(input_embeds=model.embed(tok[:, None]), attention_mask=key_mask,
+                              positions=pos, cache=cache, cache_index=slot,
+                              key_positions=key_positions)
+            tok, score = pick(logits[:, 0])
         t += 1
     return toks, scores, t

@@ -11,6 +11,7 @@ kernel for it is later work.  Semantics kept exactly:
 
 Per level, the K_l points of all queries and heads are gathered at once and
 reduced in float32 (the JAX version accumulates per (level, point) in f32).
+Each call is the span ``psg.ms_deform_attn`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from openpsg_tpu_torch.utils.profiling import span
 
 
 def ms_deform_attn(
@@ -37,14 +40,15 @@ def ms_deform_attn(
     if len(kpl) != L or not all(0 < k <= K for k in kpl):
         raise ValueError(f"points_per_level {points_per_level}")
 
-    out = torch.zeros(B, nH, Lq, hd, dtype=torch.float32, device=value.device)
-    for lvl in range(L):
-        quad, idx, cw = level_samples(value, spatial_shapes, sampling_locations,
-                                      attention_weights, lvl, kpl[lvl])
-        g = torch.gather(quad, 2, idx[..., None].expand(-1, -1, -1, 4 * hd))  # [B,nH,Lq*kl,4hd]
-        g = g.view(B, nH, Lq, kpl[lvl], 4, hd).float()
-        out += torch.einsum("bhqkcd,bhqkc->bhqd", g, cw)
-    return out.permute(0, 2, 1, 3).reshape(B, Lq, nH * hd).to(value.dtype)
+    with span("ms_deform_attn"):
+        out = torch.zeros(B, nH, Lq, hd, dtype=torch.float32, device=value.device)
+        for lvl in range(L):
+            quad, idx, cw = level_samples(value, spatial_shapes, sampling_locations,
+                                          attention_weights, lvl, kpl[lvl])
+            g = torch.gather(quad, 2, idx[..., None].expand(-1, -1, -1, 4 * hd))  # [B,nH,Lq*kl,4hd]
+            g = g.view(B, nH, Lq, kpl[lvl], 4, hd).float()
+            out += torch.einsum("bhqkcd,bhqkc->bhqd", g, cw)
+        return out.permute(0, 2, 1, 3).reshape(B, Lq, nH * hd).to(value.dtype)
 
 
 def _tent(d: torch.Tensor) -> torch.Tensor:

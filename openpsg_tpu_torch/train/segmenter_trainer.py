@@ -36,9 +36,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openpsg_tpu_torch.models.detectors.psg_v4 import _stage
 from openpsg_tpu_torch.models.segmenter.openseed import normalize_image
 from openpsg_tpu_torch.train.trainer import AdamW, MasterTrainer
+from openpsg_tpu_torch.utils.profiling import span
 
 
 class SegTrainBatch(NamedTuple):
@@ -192,17 +192,17 @@ class SegmenterTrainer(MasterTrainer):
         ``loss`` and ``grad_norm``.  ``stage_times``: wall ms of
         ``forward``, ``cost``, ``assign``, ``loss_backward`` and
         ``optimizer``, the card synchronized around each."""
-        with _stage(stage_times, "forward", self.device):
+        with span("forward", stage_times, self.device):
             outs = [self.forward(image) for image in batch.image]
-        with _stage(stage_times, "cost", self.device), torch.no_grad():
+        with span("cost", stage_times, self.device), torch.no_grad():
             costs = torch.stack([self._cost(out, *gt)
                                  for out, *gt in zip(outs, *batch[1:])]).cpu().numpy()
-        with _stage(stage_times, "assign", self.device):
+        with span("assign", stage_times, self.device):
             match = torch.from_numpy(self.assign(costs, batch.gt_valid.cpu().numpy()))
             match = match.to(self.device)
 
         def losses(i):
-            with _stage(stage_times, "loss_backward", self.device):
+            with span("loss_backward", stage_times, self.device):
                 return self._losses(outs[i], *(t[i] for t in batch[1:]), match[i])
 
         d, grads = self._backprop([lambda i=i: losses(i) for i in range(len(outs))],

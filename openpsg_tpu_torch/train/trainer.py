@@ -49,13 +49,13 @@ import torch
 
 from openpsg_tpu_torch.bridge import jax_paths, scan_prefixes
 from openpsg_tpu_torch.models.detectors import mask2former_relation as m2f
-from openpsg_tpu_torch.models.detectors.psg_v4 import _stage
 from openpsg_tpu_torch.models.relation.head_v2 import RelationHeadV2
 from openpsg_tpu_torch.models.relation.head_v4 import assemble_pair_instructions, right_align
 from openpsg_tpu_torch.models.segmenter.openseed import normalize_image
 from openpsg_tpu_torch.parallel.comm import all_reduce
 from openpsg_tpu_torch.parallel.mesh import axis_group
 from openpsg_tpu_torch.train import losses
+from openpsg_tpu_torch.utils.profiling import span
 
 
 class TrainBatch(NamedTuple):
@@ -299,7 +299,7 @@ class MasterTrainer:
         acc: Dict[str, torch.Tensor] = {}
         for losses in per_image:
             out = losses()
-            with _stage(stage_times, stage, device):
+            with span(stage, stage_times, device):
                 (sum(v for k, v in out.items() if is_loss(k)) / B).backward()
                 if B > 1:
                     self._fold_grads(acc)
@@ -311,7 +311,7 @@ class MasterTrainer:
     def _update(self, optimizer: AdamW, grads, opt_state, stage_times, device) -> torch.Tensor:
         """One optimizer step on the masters, written into the modules →
         the gradients' global norm."""
-        with _stage(stage_times, "optimizer", device):
+        with span("optimizer", stage_times, device):
             norm = optimizer.step(self.master, grads, opt_state, norm=self._global_norm(grads))
             self._sync_modules()
         return norm
@@ -489,7 +489,7 @@ class V4Trainer(_GroupTrainer):
         ``head`` and the LLM forward (``llm_fwd_bwd``), synchronizing the
         card around each."""
         out, emb, mask, pos, lab_ids, lab_mask = self.pre_llm(b, stage_times)
-        with _stage(stage_times, "llm_fwd_bwd", self.pipeline.device):
+        with span("llm_fwd_bwd", stage_times, self.pipeline.device):
             logits, _ = self.pipeline.llm(input_embeds=emb, attention_mask=mask,
                                           positions=pos, remat=True)
             out["rel_llm_loss"] = self.rel_llm_loss(logits, lab_ids, lab_mask, b.llm_valid)
@@ -511,10 +511,10 @@ class V4Trainer(_GroupTrainer):
         M, R = c.head.max_objects_padded, c.head.num_relation_classes
         dev = p.device
 
-        with _stage(stage_times, "segmenter", dev), torch.no_grad():
+        with span("segmenter", stage_times, dev), torch.no_grad():
             mask_features = p.segmenter(normalize_image(b.image), p.class_embeds)["mask_features"]
 
-        with _stage(stage_times, "head", dev):
+        with span("head", stage_times, dev):
             labels = b.object_labels.long()
             pair_idx = torch.arange(M * M, device=dev)
             sub_lab, obj_lab = labels[pair_idx // M], labels[pair_idx % M]
@@ -584,7 +584,7 @@ class V4Trainer(_GroupTrainer):
             outs, emb, mask, pos, lab_ids, lab_mask = zip(*pres)
             T, Lf = mask[0].shape
             nm = n_micro or (pp if (B * T) % pp == 0 else 1)
-            with _stage(stage_times, "llm_fwd_bwd", p.device):
+            with span("llm_fwd_bwd", stage_times, p.device):
                 logits = pipelined_llama_logits(p.llm, torch.cat(emb), torch.cat(mask),
                                                 torch.cat(pos), mesh, nm, remat=True)
                 rel_llm = self.rel_llm_loss(logits.reshape(B, T, Lf, -1), torch.stack(lab_ids),
@@ -664,10 +664,10 @@ class M2FTrainer(_GroupTrainer):
         p = self.pipeline
         c = p.cfg
         dev = p.device
-        with _stage(stage_times, "segmenter", dev):
+        with span("segmenter", stage_times, dev):
             mf = p.segment(b.image)["mask_features"]
 
-        with _stage(stage_times, "head", dev):
+        with span("head", stage_times, dev):
             labels = b.object_labels.long()
             tokens = p.object_tokens(mf, b.object_masks, labels, chunked=True)
             S = c.object_token_size

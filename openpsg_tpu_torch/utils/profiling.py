@@ -1,8 +1,10 @@
 """Tracing support (counterpart of ``openpsg_tpu/utils/profiling.py``):
-``--profile DIR`` wraps the hot region in a ``torch.profiler`` trace (CPU
-and, on the card, CUDA activities) written as a Chrome trace; a wall-clock
-section timer whose sections appear in that trace by name; the share of a
-section's time in which the card ran a kernel; and the measurement tools'
+the program's one span primitive (:func:`span`), a profiler range on the
+trace's clock that can also time its block; ``--profile DIR`` wraps the hot
+region in a ``torch.profiler`` trace (CPU and, on the card, CUDA
+activities) written as a Chrome trace; a wall-clock section timer whose
+sections appear in that trace by name; the share of a section's time in
+which the card ran a kernel, copy or set; and the measurement tools'
 sampling (:func:`time_samples`, :func:`sample_stats`), the record of the
 card they ran on (:func:`device_record`) and its published peaks."""
 
@@ -20,6 +22,33 @@ import torch
 # HBM bytes per second, float32 FLOP per second outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# what the card runs, in a Chrome trace of ``torch.profiler``
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@contextlib.contextmanager
+def span(name: str, times: Optional[Dict[str, float]] = None, device=None,
+         prefix: str = "psg."):
+    """The program's span: the block inside a ``torch.profiler`` range
+    ``prefix + name``, which a running profiler puts on the same trace and
+    clock as the card's kernels and copies (the host calls made inside it
+    link to the device work by correlation id).  With no profiler running
+    the range costs only its own host time and no device work.
+
+    When ``times`` is a dict, the block's wall ms are also added to
+    ``times[name]``, the card (``device``, where it is a CUDA device)
+    synchronized before and after, outside the range; without a dict
+    nothing synchronizes."""
+    sync = times is not None and device is not None and torch.device(device).type == "cuda"
+    if sync:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(prefix + name):
+        yield
+    if times is not None:
+        if sync:
+            torch.cuda.synchronize(device)
+        times[name] = times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
 @contextlib.contextmanager
@@ -42,8 +71,9 @@ def profile_trace(log_dir: Optional[str]):
 
 class SectionTimer:
     """Wall-clock section timer: every call's seconds per section name, and
-    a one-line report.  Sections appear in a :func:`profile_trace` trace
-    under their names."""
+    a one-line report.  Each section is a :func:`span` under its bare name
+    (no ``psg.`` prefix), so it appears in a :func:`profile_trace` trace
+    under that name; it never synchronizes."""
 
     def __init__(self):
         self.calls: Dict[str, List[float]] = {}
@@ -52,7 +82,7 @@ class SectionTimer:
     def section(self, name: str):
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with span(name, prefix=""):
                 yield
         finally:
             self.calls.setdefault(name, []).append(time.perf_counter() - t0)
@@ -79,18 +109,18 @@ def _merged(intervals):
 
 
 def device_busy(trace_path: str, window: str) -> Tuple[float, float]:
-    """→ (seconds in which at least one CUDA kernel ran inside the sections
-    named ``window``, those sections' total seconds), from a Chrome trace of
-    :func:`profile_trace`: the kernels' intervals merged and clipped to the
-    sections' CPU-side ``record_function`` spans."""
+    """→ (seconds in which the card ran at least one kernel, copy or set
+    inside the sections named ``window``, those sections' total seconds),
+    from a Chrome trace of :func:`profile_trace`: the device intervals merged
+    and clipped to the sections' CPU-side ``record_function`` spans."""
     with open(trace_path, "r", encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
-    span = lambda e: (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
-    wins = _merged(span(e) for e in events
+    interval = lambda e: (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+    wins = _merged(interval(e) for e in events
                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                    and e.get("name") == window)
-    kernels = _merged(span(e) for e in events
-                      if e.get("ph") == "X" and e.get("cat") == "kernel")
+    kernels = _merged(interval(e) for e in events
+                      if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
     total = sum(b - a for a, b in wins)
     busy = sum(max(0.0, min(b, wb) - max(a, wa)) for a, b in kernels for wa, wb in wins)
     return busy * 1e-6, total * 1e-6      # trace times are in µs

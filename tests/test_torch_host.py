@@ -429,11 +429,14 @@ def test_device_busy_and_section_timer(tmp_path):
         {"ph": "X", "cat": "kernel", "name": "k", "ts": 10, "dur": 20},
         {"ph": "X", "cat": "kernel", "name": "k", "ts": 20, "dur": 20},     # overlaps
         {"ph": "X", "cat": "kernel", "name": "k", "ts": 150, "dur": 70},    # 20 inside
+        {"ph": "X", "cat": "gpu_memset", "name": "s", "ts": 35, "dur": 10},  # 5 more
+        {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 250, "dur": 10},  # 10 more
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0, "dur": 300},
     ]
     p = tmp_path / "trace.json"
     p.write_text(json.dumps({"traceEvents": ev}))
-    assert profiling.device_busy(str(p), "model") == pytest.approx((50e-6, 200e-6))
+    # kernels, copies and sets merged: 10-45 and 200-220, 250-260
+    assert profiling.device_busy(str(p), "model") == pytest.approx((65e-6, 200e-6))
     timer = profiling.SectionTimer()
     for name in ("a", "b", "a"):
         with timer.section(name):

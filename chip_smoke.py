@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure:
   1. device line (``nvidia-smi`` name and power limit, torch and CUDA);
-  2. build both CUDA kernels from ``csrc/`` (one nvcc each, started
-     together from two threads) and log their registers and spills, and
+  2. build the three CUDA kernels from ``csrc/`` (one nvcc each, started
+     together from three threads) and log their registers and spills, and
      the shared-KV kernel's hopper variant's registers, shared memory and
      local memory as the CUDA runtime reports them;
   3. each kernel against its plain PyTorch version: the shared-KV
@@ -15,13 +15,19 @@ Phases, each fatal on failure:
      at the hopper variant's edges at the main width (NP = 1 and 1000,
      Lq = 1, P at the cap and one past it), each case holding the variant's
      launch count; the row gather bitwise on seeded cases (float32 and
-     bf16, ragged sizes, out-of-range indices, C = 128 and 16);
+     bf16, ragged sizes, out-of-range indices, C = 128 and 16); the fused
+     ``ms_deform_attn`` within one step of the output type of its plain
+     version (the 1344² encoder, 300 decoder queries at B = 2, points
+     2,2,2,4, levels of height or width 1 and 2 with locations outside the
+     map, a head of 4 channels; float32 and bf16), one launch a call;
   4. the per-image path at full ``baseline_v4_ov`` width (bf16 LLM):
      ``PSGv4.infer`` on seeded 1344² images with seeded random weights,
      launch counts (per variant) read around exactly that run; plus the
      tiny config on the card against the CPU path, with its float32 LLM
      through ``infer`` and with an int8 bf16 LLM through
-     ``infer_microbatch`` (3 images, int8-activation prefill);
+     ``infer_microbatch`` (3 images, int8-activation prefill); one
+     ``ms_deform_attn`` launch per deformable layer and image (15), no
+     plain call;
   5. the kernels' times, the plain versions', the library's and the bound
      on the main path's own inputs (image 0, CUDA events around 10
      back-to-back calls, median per call with its interquartile range): the shared-KV kernel on the first Q-Former
@@ -29,7 +35,12 @@ Phases, each fatal on failure:
      explicitly, the plain version and SDPA in two formulations, timed in
      turns), the gather on level 0 of the first pixel-decoder
      encoder layer (quad table and row index rebuilt by
-     ``ops/deform_attn.level_samples``); then the full-width head with the
+     ``ops/deform_attn.level_samples``); the fused ``ms_deform_attn`` and
+     its plain version in turns, beside the op's bound, on image 0's first
+     encoder and decoder calls (1344²) and on a 1024x1344 image's (its
+     encoder with 4 levels and with the first 3, and its decoder); no
+     single PyTorch call computes it, so its ``library_ms`` is none; then
+     the full-width head with the
      plain attention forced (test-only switch) against the kernel path on
      one image with 30 seeded objects, in bf16 and on a float32 copy;
   6. the deployment path at full ``baseline_v4_ov_w8a8`` width (int8
@@ -38,7 +49,8 @@ Phases, each fatal on failure:
      ``PSGv4.infer_microbatch`` on 4 seeded 1344² images (a warm-up, then
      one timed call, launch counts read around it), then the same images
      through ``PSGv4.infer`` on the same model, its decode teacher-forced
-     on the micro-batch's tokens: pan maps, objects, top-20 pairs and
+     on the micro-batch's tokens (15 ``ms_deform_attn`` launches an image
+     on the micro-batch): pan maps, objects, top-20 pairs and
      top-100 triplets identical, logits within TOL_LOGIT_REL, and a token
      chosen differently only where its top-1 margin is within twice the
      largest logit change at the steps that agree;
@@ -530,9 +542,14 @@ def main() -> int:
     # ---- 2. build
     from concurrent.futures import ThreadPoolExecutor
 
-    from openpsg_tpu_torch.ops import _build, flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.ops import (
+        _build,
+        deform_attn as da,
+        flash_cross_attn as fca,
+        msda_gather as mg,
+    )
 
-    kernels = ("flash_shared_kv_cross_attn", "sparse_row_gather")
+    kernels = ("flash_shared_kv_cross_attn", "sparse_row_gather", "ms_deform_attn")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source, all at once
         list(pool.map(_build.library, kernels))
@@ -556,8 +573,12 @@ def main() -> int:
            "source": "openpsg_tpu_torch/csrc/sparse_row_gather.cu",
            "replaces": "openpsg_tpu/ops/pallas/msda_gather.py:70",
            "on_main_path": False}
+    fused = {"name": "ms_deform_attn", "route": "cuda",
+             "source": "openpsg_tpu_torch/csrc/ms_deform_attn.cu",
+             "replaces": "none (XLA in the JAX package: openpsg_tpu/ops/deform_attn.py:125)"}
     phase_kernel(torch, skv)
     phase_gather(torch, gat)
+    phase_msda(torch, fused)
 
     # ---- 4. main path at full width
     import numpy as np
@@ -580,6 +601,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     fca.reset_launches()
     mg.sparse_row_gather.launches = 0
+    da.ms_deform_attn.launches = da.ms_deform_attn.plain_calls = 0
     results = []
     for i, (img, hw) in enumerate(zip(images, hws)):
         st = {}
@@ -596,29 +618,36 @@ def main() -> int:
     skv["launches_by_path"] = {"infer": launches}
     skv["launches_by_variant"] = {"infer": by_variant}
     gat["launches_by_path"] = {"infer": mg.sparse_row_gather.launches}
+    fused["launches_by_path"] = {"infer": da.ms_deform_attn.launches}
     log(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"flash_shared_kv_cross_attn launches {launches} for {len(images)} images "
-        f"({by_variant}); sparse_row_gather launches {mg.sparse_row_gather.launches}")
+        f"({by_variant}); sparse_row_gather launches {mg.sparse_row_gather.launches}; "
+        f"ms_deform_attn launches {da.ms_deform_attn.launches}, plain calls "
+        f"{da.ms_deform_attn.plain_calls}")
     check_variants(by_variant, len(images))
+    check_msda_launches(model, len(images))
     for res in results:
         check_result(res, (H, W))
 
     # ---- 5. kernel times on the main path's own inputs; the head with the
     # plain attention forced, against the kernel
     img = torch.as_tensor(images[0]).cuda()
-    seg, msda = first_msda_call(lambda: model.segment(img))
+    seg, enc_calls = msda_calls(lambda: model.segment(img))
+    msda = enc_calls[0][:4]
     own = model.fuse_select(seg, hws[0])
     _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *own))
     log("[kernel] timing on image 0's first Q-Former layer, as phase 4 ran it")
     time_kernel(torch, fca, *calls[0], skv)
     log("[gather] timing on level 0 of image 0's first pixel-decoder encoder layer")
     time_gather(torch, mg, msda, gat)
+    log("[msda] timing on image 0's first encoder call, and on a 1024x1344 image's")
+    time_msda(torch, model, enc_calls, fused)
     phase_head_parity(torch, model, seg["mask_features"], synthetic_objects(model, seg, own))
-    del model, seg, own, calls, msda
+    del model, seg, own, calls, msda, enc_calls
     torch.cuda.empty_cache()
 
     # ---- 6. the deployment path
-    phase_deployment(torch, skv, gat)
+    phase_deployment(torch, skv, gat, fused)
     torch.cuda.empty_cache()
 
     # ---- 7. the tool path
@@ -672,7 +701,8 @@ def main() -> int:
             assert key in k, key
     for key in ("variant", "simple_ms", "library_other_ms", "hopper_registers"):
         assert key in skv, key
-    log(json.dumps({"kernels": [skv, gat]}))
+    fused["launches"] = sum(fused["launches_by_path"].values())
+    log(json.dumps({"kernels": [skv, gat, fused]}))
     log(smi)
     return 0
 
@@ -711,24 +741,31 @@ def phase_gather(torch, results):
     results["max_abs_err"] = err
 
 
-def first_msda_call(fn):
+def msda_calls(fn):
     """Run ``fn()`` with the segmenter's ``ms_deform_attn`` recorded → (its
-    result, the arguments of the first call: the first pixel-decoder
-    encoder layer's value, spatial shapes, locations and weights)."""
+    result, the arguments of every call in order: value, spatial shapes,
+    locations, weights and points per level; the pixel decoder's encoder
+    layers first, then the query decoder's)."""
     import openpsg_tpu_torch.models.segmenter.deform_layers as dl
 
     real, calls = dl.ms_deform_attn, []
 
     def record(*args, **kw):
-        if not calls:
-            calls.append(args[:4])
+        calls.append(args[:4] + (kw.get("points_per_level"),))
         return real(*args, **kw)
 
     dl.ms_deform_attn = record
     try:
-        return fn(), calls[0]
+        return fn(), calls
     finally:
         dl.ms_deform_attn = real
+
+
+def first_msda_call(fn):
+    """:func:`msda_calls` → (the result, the first call's value, spatial
+    shapes, locations and weights: the first pixel-decoder encoder layer's)."""
+    res, calls = msda_calls(fn)
+    return res, calls[0][:4]
 
 
 def time_gather(torch, mg, msda, results):
@@ -770,6 +807,133 @@ def time_gather(torch, mg, msda, results):
         f"({rows} distinct rows of {nH * HW}, {float(inside.float().mean()):.4f} in range); "
         + ", ".join(text) + f"; library = torch.gather (bf16 out); bound_ms "
         f"{results['bound_ms']:.4f} ({nbytes / 1e6:.1f} MB, bytes); bitwise equal to plain")
+
+
+def msda_agreement(torch, got, want):
+    """→ (largest difference, whether every element of the kernel's output
+    ``got`` lies within one step of its type of the plain version's ``want``
+    plus 2^-16 of ``want``'s largest magnitude).  Both round one float32 sum
+    of the same products, taken in another order, to the output type."""
+    want_f = want.float()
+    diff = (got.float() - want_f).abs()
+    slack = 2.0 ** -16 * float(want_f.abs().max())
+    big = torch.maximum(got.float().abs(), want_f.abs()).clamp_min(1e-30)
+    step = (torch.exp2(torch.floor(torch.log2(big))) * torch.finfo(want.dtype).eps
+            if want.dtype == torch.bfloat16 else torch.zeros_like(big))
+    return float(diff.max()), bool((diff <= step + slack).all()) and got.shape == want.shape
+
+
+def phase_msda(torch, results):
+    """Phase 3: the fused ``ms_deform_attn`` kernel against its plain
+    version (:func:`msda_agreement`), float32 and bf16, one launch a call:
+    the 1344² encoder's 4 levels, 300 decoder queries at B = 2, points per
+    level 2,2,2,4, levels of height or width 1 and 2 with locations outside
+    [0, 1], and the tiny segmenter's head of 4 channels."""
+    from openpsg_tpu_torch.ops import deform_attn as da
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    enc = ((168, 168), (84, 84), (42, 42), (21, 21))
+    cases = (  # name, levels, Lq (None: Lv), B, hd, points per level, location range
+        ("1344^2 encoder", enc, None, 1, 32, None, (0.0, 1.0)),
+        ("300 decoder queries, B=2", enc, 300, 2, 32, None, (0.0, 1.0)),
+        ("points 2,2,2,4", enc, 5000, 1, 32, (2, 2, 2, 4), (0.0, 1.0)),
+        ("levels of 1 and 2, outside [0, 1]", ((1, 5), (3, 1), (2, 2), (1, 1)), 77, 2, 32,
+         (4, 1, 3, 2), (-0.5, 1.5)),
+        ("head of 4", ((8, 6), (4, 3), (2, 2)), 23, 1, 4, None, (-0.25, 1.25)),
+    )
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shapes, Lq, B, hd, ppl, (lo, hi) in cases:
+            L, Lv = len(shapes), sum(h * w for h, w in shapes)
+            Lq = Lv if Lq is None else Lq
+            value = torch.randn(B, Lv, 8, hd, generator=gen, device="cuda").to(dtype)
+            loc = torch.rand(B, Lq, 8, L, 4, 2, generator=gen, device="cuda") * (hi - lo) + lo
+            aw = torch.softmax(torch.randn(B, Lq, 8, L * 4, generator=gen, device="cuda"),
+                               -1).view(B, Lq, 8, L, 4)
+            before = da.ms_deform_attn.launches
+            got = da.ms_deform_attn(value, shapes, loc, aw, ppl)
+            torch.cuda.synchronize()
+            e, ok = msda_agreement(torch, got, da.ms_deform_attn_plain(value, shapes, loc, aw,
+                                                                       ppl))
+            ok = ok and da.ms_deform_attn.launches == before + 1
+            log(f"[msda] {str(dtype).split('.')[-1]} {name} (B={B} Lq={Lq} hd={hd}): "
+                f"max_abs_err={e:.3e}, one launch {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ms_deform_attn kernel disagrees with plain on {name}")
+            err = max(err, e)
+    results["max_abs_err"] = err
+
+
+def check_msda_launches(model, n_images):
+    """One kernel launch per deformable layer per image, no plain call."""
+    from openpsg_tpu_torch.ops import deform_attn as da
+
+    sc = model.cfg.segmenter
+    want = (sc.enc_layers + sc.dec_layers) * n_images
+    got = (da.ms_deform_attn.launches, da.ms_deform_attn.plain_calls)
+    if got != (want, 0):
+        raise AssertionError(f"ms_deform_attn (launches, plain calls) {got}, want ({want}, 0)")
+
+
+def time_msda(torch, model, calls, results):
+    """Phase 5: the fused kernel's time and the plain version's, in turns
+    (:func:`time_turns`), beside the op's bound (the probe's ``op_bound``),
+    on the main path's own inputs: ``calls`` (image 0's, 1344²: PR 13's
+    probe shape) give the first encoder and decoder calls; a seeded
+    1024x1344 image (the benchmark's bucket) gives its first encoder call,
+    the same with its first 3 levels (the v1 cell's), and its first decoder
+    call.  No single PyTorch call computes this op: ``library_ms`` is none."""
+    import numpy as np
+
+    from openpsg_tpu_torch.ops import deform_attn as da
+    from openpsg_tpu_torch.tools.probe_msda_variants import op_bound
+
+    Q = model.cfg.segmenter.num_queries
+    img = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (1024, 1344, 3))
+                          .astype(np.uint8), device="cuda")
+    _, cell = msda_calls(lambda: model.segment(img))
+    first_decoder = lambda cs: next(c for c in cs if c[2].shape[1] == Q)  # noqa: E731
+    v, shapes, loc, aw, ppl = cell[0]
+    n3 = sum(h * w for h, w in shapes[:3])
+    v1_levels = (v[:, :n3].contiguous(), shapes[:3], loc[:, :n3, :, :3].contiguous(),
+                 aw[:, :n3, :, :3].contiguous(), None if ppl is None else ppl[:3])
+    cases = {"encoder_1344x1344": calls[0], "decoder_1344x1344": first_decoder(calls),
+             "encoder_1024x1344": cell[0], "encoder_1024x1344_3_levels": v1_levels,
+             "decoder_1024x1344": first_decoder(cell)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (value, shapes, loc, aw, ppl) in cases.items():
+        def kernel(a=(value, shapes, loc, aw, ppl)):
+            return da.ms_deform_attn(*a)
+
+        def plain(a=(value, shapes, loc, aw, ppl)):
+            return da.ms_deform_attn_plain(*a)
+
+        err, ok = msda_agreement(torch, kernel(), plain())
+        if not ok:
+            raise AssertionError(f"ms_deform_attn kernel disagrees with plain on {name}")
+        t = time_turns({"ms": kernel, "plain_ms": plain})
+        kpl = ppl or (loc.shape[4],) * loc.shape[3]
+        bound, by, nbytes = op_bound(value, loc, kpl)
+        plan = da.launch_plan(value.dtype, value.shape[3],
+                              value.shape[0] * loc.shape[1] * value.shape[2], len(kpl), sms)
+        out[name] = {"Lq": loc.shape[1], "levels": [list(x) for x in shapes],
+                     "points_per_level": list(kpl), "ms": t["ms"][0],
+                     "ms_iqr": [t["ms"][1], t["ms"][2]], "plain_ms": t["plain_ms"][0],
+                     "bound_ms": bound, "bound_by": by, "of_bound": bound / t["ms"][0],
+                     "max_abs_err": err, "plan_G_P_threads": list(plan)}
+        log(f"[msda] {name} (Lq {loc.shape[1]}, levels {list(shapes)}, points {list(kpl)}, "
+            f"{value.dtype}; plan G, P, threads {plan}): ms {t['ms'][0]:.4f} (IQR "
+            f"{t['ms'][1]:.4f}-{t['ms'][2]:.4f}), plain_ms {t['plain_ms'][0]:.4f} (IQR "
+            f"{t['plain_ms'][1]:.4f}-{t['plain_ms'][2]:.4f}); bound_ms {bound:.4f} ({by}, "
+            f"{nbytes / 1e6:.1f} MB); {bound / t['ms'][0]:.1%} of the bound; library none; "
+            f"max_abs_err {err:.3e}")
+    results["shapes"] = out
+    main = out["encoder_1344x1344"]
+    results.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    results["library"], results["library_ms"] = "none: no single PyTorch call computes it", None
+    results["max_abs_err"] = max([results["max_abs_err"]] + [e["max_abs_err"]
+                                                             for e in out.values()])
 
 
 @contextlib.contextmanager
@@ -870,7 +1034,7 @@ def phase_qdense(torch, model):
                 raise AssertionError(f"QDense {name} on the card disagrees with its CPU path")
 
 
-def phase_deployment(torch, skv, gat):
+def phase_deployment(torch, skv, gat, fused):
     """Phase 6: ``QDense`` on the card against the CPU; ``infer_microbatch``
     at full ``baseline_v4_ov_w8a8`` width on 4 seeded images (warm-up, then
     one timed call), then ``infer`` on each image with the same int8 model,
@@ -878,7 +1042,7 @@ def phase_deployment(torch, skv, gat):
     import numpy as np
 
     from openpsg_tpu_torch.models.detectors.psg_v4 import AUTO_MB_SIZE, PSGv4, PSGv4Config
-    from openpsg_tpu_torch.ops import flash_cross_attn as fca, msda_gather as mg
+    from openpsg_tpu_torch.ops import deform_attn as da, flash_cross_attn as fca, msda_gather as mg
 
     t0 = time.perf_counter()
     model = PSGv4(PSGv4Config.baseline_v4_ov_w8a8(), seed=0, device="cuda")
@@ -897,6 +1061,7 @@ def phase_deployment(torch, skv, gat):
     torch.cuda.reset_peak_memory_stats()
     fca.reset_launches()
     mg.sparse_row_gather.launches = 0
+    da.ms_deform_attn.launches = da.ms_deform_attn.plain_calls = 0
     st = {}
     with recorded(model) as mb:
         t0 = time.perf_counter()
@@ -907,6 +1072,8 @@ def phase_deployment(torch, skv, gat):
     skv["launches_by_path"]["infer_microbatch"] = launches
     skv["launches_by_variant"]["infer_microbatch"] = by_variant
     gat["launches_by_path"]["infer_microbatch"] = mg.sparse_row_gather.launches
+    fused["launches_by_path"]["infer_microbatch"] = da.ms_deform_attn.launches
+    check_msda_launches(model, N)
     log(f"[deploy] infer_microbatch of {N} images: total {wall:.1f} ms, {wall / N:.1f} "
         "ms/image; per image " + ", ".join(f"{k} {v / N:.1f} ms" for k, v in st.items())
         + f"; decode_trips {res[0]['decode_steps']} (joint); peak memory "
@@ -3932,7 +4099,8 @@ def phase_bench_tools(torch, skv, gat, deploy):
                 f"{e['bound_ms']:.4f}" + (f", vs v0 {e['max_abs_diff_vs_v0']:.3g} <= "
                                           f"{e['tol']:.3g}" if "tol" in e else "") + ")"
                 for v, e in r["variants"].items())
-            + f"; sparse_row_gather launches {r['sparse_row_gather_launches']}")
+            + f"; sparse_row_gather launches {r['sparse_row_gather_launches']}, "
+            f"ms_deform_attn launches {r['ms_deform_attn_launches']}")
     times["b"] = time.perf_counter() - t0
 
     # 14c

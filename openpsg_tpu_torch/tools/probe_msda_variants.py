@@ -11,7 +11,7 @@ is one row of a "quad" table (a 2×2 corner neighbourhood, 4·hd wide;
 
   raw   the floor: per head, L·K gathers of Lq random rows from a
         contiguous [Lv, 4hd] table, each summed; no weights, no output.
-  v0    the shipped op (``ops/deform_attn.ms_deform_attn``): one
+  v0    the plain path (``ops/deform_attn.ms_deform_attn_plain``): one
         ``torch.gather`` per level.
   v1    a head-major quad table [nH, Lv, 4hd] built once; one gather of Lq
         rows per (head, level, point).
@@ -23,6 +23,9 @@ is one row of a "quad" table (a 2×2 corner neighbourhood, 4·hd wide;
         of v2's bf16 gather.
   v4    merged indices as in v2, on the strided [Lv, nH, 4hd] table (a
         head is a strided slice): separates the two effects.
+  fused the shipped op (``ops/deform_attn.ms_deform_attn``): on the card one
+        launch of the fused kernel (``csrc/ms_deform_attn.cu``), no quad
+        table; on the CPU the plain path.
 
 Before any timing each variant but ``raw`` computes the whole output, which
 must agree with v0's within :func:`agreement_tol`.  A variant is pure
@@ -31,7 +34,7 @@ calls, ``BENCH_ITERS`` samples, median and interquartile range
 (``utils/profiling.time_samples``).
 
 Env knobs (the JAX tool's): ``BENCH_IMAGE`` (1344), ``BENCH_ITERS`` (4),
-``VARIANTS`` (raw,v0,v1,v2,v2k,v4).  Prints one JSON line.
+``VARIANTS`` (raw,v0,v1,v2,v2k,v4,fused).  Prints one JSON line.
 
     python -m openpsg_tpu_torch.tools.probe_msda_variants [--device cuda]
 """
@@ -46,7 +49,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from openpsg_tpu_torch.ops.deform_attn import level_samples, ms_deform_attn
+from openpsg_tpu_torch.ops.deform_attn import level_samples, ms_deform_attn, ms_deform_attn_plain
 from openpsg_tpu_torch.ops.msda_gather import sparse_row_gather
 from openpsg_tpu_torch.utils.profiling import (
     PEAK_BYTES_PER_S,
@@ -55,7 +58,7 @@ from openpsg_tpu_torch.utils.profiling import (
     time_samples,
 )
 
-VARIANTS = ("raw", "v0", "v1", "v2", "v2k", "v4")
+VARIANTS = ("raw", "v0", "v1", "v2", "v2k", "v4", "fused")
 CALLS_PER_SAMPLE = 3
 N_HEADS, HEAD_DIM, N_LEVELS, N_POINTS = 8, 32, 4, 4
 
@@ -125,7 +128,7 @@ def _rows(table, idx):
 
 
 def v0(value, shapes, loc, aw, points_per_level=None):
-    return ms_deform_attn(value, shapes, loc, aw, points_per_level)
+    return ms_deform_attn_plain(value, shapes, loc, aw, points_per_level)
 
 
 def v1(value, shapes, loc, aw, points_per_level=None):
@@ -172,7 +175,11 @@ def v2k(value, shapes, loc, aw, points_per_level=None):
     return _finish(out, value.dtype)
 
 
-FORMULATIONS = {"v0": v0, "v1": v1, "v2": v2, "v2k": v2k, "v4": v4}
+def fused(value, shapes, loc, aw, points_per_level=None):
+    return ms_deform_attn(value, shapes, loc, aw, points_per_level)
+
+
+FORMULATIONS = {"v0": v0, "v1": v1, "v2": v2, "v2k": v2k, "v4": v4, "fused": fused}
 
 
 def raw_fn(value, shapes, points, seed: int = 0):
@@ -245,6 +252,7 @@ def run(value, shapes, loc, aw, points_per_level=None, variants: Sequence[str] =
     if unknown:
         raise ValueError(f"unknown variants {sorted(unknown)}; known {VARIANTS}")
     launches0 = sparse_row_gather.launches
+    fused0 = ms_deform_attn.launches
     ref = v0(value, shapes, loc, aw, points_per_level)
     tol = agreement_tol(ref)
     op_ms, op_by, op_bytes = op_bound(value, loc, points)
@@ -298,6 +306,7 @@ def run(value, shapes, loc, aw, points_per_level=None, variants: Sequence[str] =
         "variants": res,
         "calls_per_sample": CALLS_PER_SAMPLE, "samples": iters,
         "sparse_row_gather_launches": sparse_row_gather.launches - launches0,
+        "ms_deform_attn_launches": ms_deform_attn.launches - fused0,
         "device": device_label or device_record(dev),
     }
     if emit:

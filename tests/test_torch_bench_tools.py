@@ -55,7 +55,7 @@ def probe_case():
     return tuple(torch.from_numpy(a) for a in (value, loc, aw)), want
 
 
-@pytest.mark.parametrize("variant", ["v0", "v1", "v2", "v2k", "v4"])
+@pytest.mark.parametrize("variant", ["v0", "v1", "v2", "v2k", "v4", "fused"])
 def test_probe_variant_matches_jax(probe_case, variant):
     (value, loc, aw), want = probe_case
     got = probe.FORMULATIONS[variant](value, PROBE_SHAPES, loc, aw, PROBE_POINTS)
@@ -68,6 +68,7 @@ def test_probe_run_holds_every_variant_to_v0(probe_case, monkeypatch):
     rec = probe.run(value, PROBE_SHAPES, loc, aw, PROBE_POINTS, iters=1, emit=False)
     assert list(rec["variants"]) == list(probe.VARIANTS)
     assert rec["device"] == "cpu" and rec["sparse_row_gather_launches"] == 0
+    assert rec["ms_deform_attn_launches"] == 0
     assert rec["geometry"]["points_per_level"] == list(PROBE_POINTS)
     for name, e in rec["variants"].items():
         assert e["median_ms"] > 0 and e["bound_ms"] > 0

@@ -23,6 +23,7 @@ from openpsg_tpu.ops.pallas.msda_gather import sparse_row_gather as jgather
 from openpsg_tpu_torch.ops import flash_cross_attn as fca
 from openpsg_tpu_torch.ops import mask_ops
 from openpsg_tpu_torch.ops import msda_gather
+from openpsg_tpu_torch.ops import deform_attn
 from openpsg_tpu_torch.ops.deform_attn import level_samples, ms_deform_attn
 
 # the suite's workers share the cores, and these tensors are tiny: one torch
@@ -114,6 +115,121 @@ class TestMSDeformAttn:
                           torch.from_numpy(a))
         np.testing.assert_array_equal(ms_deform_attn(*args(aw), points_per_level=ppl).numpy(),
                                       ms_deform_attn(*args(aw2), points_per_level=ppl).numpy())
+
+
+# levels of height or width 1 and 2 (the clamps' and the rolls' edge cases),
+# each with locations reaching well outside [0, 1]
+DEGENERATE_SHAPES = [((1, 5), (3, 1), (2, 2), (1, 1)), ((2, 1), (1, 2), (5, 3)),
+                     ((2, 7), (7, 2), (2, 2)), ((1, 1),)]
+
+
+class TestMSDeformAttnEdges:
+    """The plain path on the cases the fused kernel's clamps and ``mod``
+    must match, and the wrapper's dispatch, checks and launch plan."""
+
+    @pytest.mark.parametrize("ppl", [None, "first"])
+    @pytest.mark.parametrize("shapes", DEGENERATE_SHAPES, ids=str)
+    def test_plain_matches_flat_on_degenerate_levels(self, shapes, ppl):
+        v, loc, aw = _msda_inputs(3, shapes, Lq=13, K=3, spread=3.0)
+        ppl = None if ppl is None else tuple(1 + i % 3 for i in range(len(shapes)))
+        want = np.asarray(_ms_deform_attn_flat(
+            jnp.asarray(v), shapes, jnp.asarray(loc), jnp.asarray(aw), ppl))
+        got = ms_deform_attn(*_t(v), shapes, *_t(loc, aw), points_per_level=ppl).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+
+    @pytest.mark.parametrize("shapes", [((2, 7), (7, 2), (2, 2)), ((2, 2),)], ids=str)
+    def test_plain_matches_reference_on_levels_of_two(self, shapes):
+        """Zero padding, as the numpy reference samples.  A level of height
+        or width 1 is left out here: the clamped base leaves the second
+        corner on the map there, and the flat formulation (JAX's and the
+        port's alike) reads the rolled neighbour where the reference reads
+        zero."""
+        v, loc, aw = _msda_inputs(4, shapes, Lq=13, K=3, spread=3.0)
+        want = ms_deform_attn_reference(v, shapes, loc, aw)
+        got = ms_deform_attn(*_t(v), shapes, *_t(loc, aw)).numpy()
+        np.testing.assert_allclose(got, want.reshape(got.shape), **TOL)
+
+    def test_cpu_takes_plain_path_and_counts_nothing(self):
+        shapes = TestMSDeformAttn.SHAPES
+        args = (*_t(_msda_inputs(5, shapes)[0]), shapes, *_t(*_msda_inputs(5, shapes)[1:]))
+        before = (ms_deform_attn.launches, ms_deform_attn.plain_calls)
+        got = ms_deform_attn(*args)
+        assert (ms_deform_attn.launches, ms_deform_attn.plain_calls) == before
+        assert torch.equal(got, deform_attn.ms_deform_attn_plain(*args))
+
+    @pytest.mark.parametrize("grad_mode,needs", [(True, ()), (True, (0,)), (True, (1,)),
+                                                 (True, (2,)), (False, (0, 1, 2))])
+    def test_needs_autograd(self, grad_mode, needs):
+        """The dispatch rule: autograd needs the result (so the plain path
+        runs) exactly when grad mode is on and an input requires a gradient."""
+        ts = [torch.zeros(2, requires_grad=i in needs) for i in range(3)]
+        with torch.set_grad_enabled(grad_mode):
+            assert deform_attn.needs_autograd(*ts) == (grad_mode and bool(needs))
+
+    @staticmethod
+    def _kernel_args(dtype=torch.bfloat16, hd=8, shapes=((4, 3), (2, 2)), K=3):
+        v, loc, aw = _msda_inputs(6, shapes, hd=hd, K=K)
+        return torch.from_numpy(v).to(dtype), shapes, *_t(loc, aw)
+
+    @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 32), (torch.float32, 32),
+                                          (torch.bfloat16, 4), (torch.float32, 4),
+                                          (torch.bfloat16, 256), (torch.float32, 128)])
+    def test_check_takes_the_kernels_inputs(self, dtype, hd):
+        v, shapes, loc, aw = self._kernel_args(dtype, hd)
+        assert deform_attn.check_kernel_inputs(v, shapes, loc, aw) == (3, 3)
+        assert deform_attn.check_kernel_inputs(v, shapes, loc, aw, (1, 3)) == (1, 3)
+
+    BAD = {
+        "value_dtype": (TypeError, "value must be", lambda v, s, l, a: (v.half(), s, l, a)),
+        "locations_dtype": (TypeError, "sampling_locations must be float32",
+                            lambda v, s, l, a: (v, s, l.double(), a)),
+        "weights_dtype": (TypeError, "attention_weights must be float32",
+                          lambda v, s, l, a: (v, s, l, a.bfloat16())),
+        "weights_device": (ValueError, "attention_weights on meta",
+                           lambda v, s, l, a: (v, s, l, a.to("meta"))),
+        "value_contiguity": (ValueError, "value must be contiguous",
+                             lambda v, s, l, a: (v.transpose(2, 3).contiguous().transpose(2, 3),
+                                                 s, l, a)),
+        "locations_contiguity": (ValueError, "sampling_locations must be contiguous",
+                                 lambda v, s, l, a: (v, s, l.transpose(3, 4).contiguous()
+                                                     .transpose(3, 4), a)),
+        "five_levels": (ValueError, "5 levels",
+                        lambda v, s, l, a: (v[:, :10].contiguous(), ((1, 2),) * 5,
+                                            torch.cat([l[:, :, :, :1]] * 5, 3),
+                                            torch.cat([a[:, :, :, :1]] * 5, 3))),
+        "hd_12": (ValueError, "hd=12", lambda v, s, l, a: (v[..., :12].contiguous(), s, l, a)),
+        "hd_2": (ValueError, "hd=2", lambda v, s, l, a: (v[..., :2].contiguous(), s, l, a)),
+        "hd_512": (ValueError, "hd=512",
+                   lambda v, s, l, a: (torch.cat([v] * 32, -1), s, l, a)),
+        "shape_mismatch": (ValueError, "attention_weights",
+                           lambda v, s, l, a: (v, s, l, a[..., :2].contiguous())),
+        "level_count": (ValueError, "levels in locations", lambda v, s, l, a: (v, s[:1], l, a)),
+    }
+
+    @pytest.mark.parametrize("case", list(BAD))
+    def test_check_raises_by_name(self, case):
+        exc, match, make = self.BAD[case]
+        v, shapes, loc, aw = self._kernel_args(hd=16)
+        with pytest.raises(exc, match=match):
+            deform_attn.check_kernel_inputs(*make(v, shapes, loc, aw))
+
+    @pytest.mark.parametrize("ppl", [(0, 3), (1, 4), (2,), (1, 2, 3)])
+    def test_check_raises_on_points_per_level(self, ppl):
+        with pytest.raises(ValueError, match="points_per_level"):
+            deform_attn.check_kernel_inputs(*self._kernel_args(), points_per_level=ppl)
+
+    @pytest.mark.parametrize("dtype,hd,groups,levels,plan", [
+        (torch.bfloat16, 32, 28560 * 8, 4, (4, 1, 256)),   # v4 encoder, 1024x1344
+        (torch.bfloat16, 32, 28224 * 8, 3, (4, 1, 256)),   # v1 encoder, 1024x1344
+        (torch.bfloat16, 32, 300 * 8, 4, (4, 4, 128)),     # v4 decoder, 300 queries
+        (torch.bfloat16, 32, 4 * 300 * 8, 4, (4, 4, 256)),  # 4 images' decoders
+        (torch.float32, 32, 300 * 8, 3, (8, 4, 256)),      # float32: 8 threads a head
+        (torch.float32, 4, 23 * 8, 3, (1, 4, 64)),         # the tiny segmenter
+        (torch.bfloat16, 4, 23 * 8, 2, (1, 2, 64)),        # a bf16 head of 4: 8 bytes
+        (torch.bfloat16, 256, 100, 4, (32, 1, 64)),        # 32 threads: no room to split
+    ])
+    def test_launch_plan(self, dtype, hd, groups, levels, plan):
+        assert deform_attn.launch_plan(dtype, hd, groups, levels, sms=132) == plan
 
 
 def _skv(seed, NP, H, Lq, hd, P, mask_p=0.5):

@@ -12,8 +12,10 @@ one prefill and decode over all images' pairs), :meth:`PSGv4.infer_batch`
 (one image, its pairs split over the ranks) and :meth:`PSGv4.infer_gt`
 (ground-truth masks in place of fusion).
 
-Weights are seeded random at construction (``seed``); with
-``llm.quant`` the seeded dense LLM is quantized by :func:`quantize_llama`.
+The LLM is a Llama or a DeepSeek-V3 decoder, built by the type of
+``PSGv4Config.llm``.  Weights are seeded random at construction
+(``seed``); with ``llm.quant`` (Llama only) the seeded dense LLM is
+quantized by :func:`quantize_llama`.
 Trained or JAX weights load through :mod:`openpsg_tpu_torch.bridge`.  The
 class embeddings (``class_embeds``) are the language encoder's output for
 the class names, or a precomputed ``.npy`` matrix.
@@ -22,7 +24,7 @@ the class names, or a precomputed ``.npy`` matrix.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,10 +41,12 @@ from openpsg_tpu_torch.data.vocab import (
 )
 from openpsg_tpu_torch.models.common import init_params
 from openpsg_tpu_torch.models.llm.decode import greedy_decode
+from openpsg_tpu_torch.models.llm.deepseek_v3 import DeepseekV3Config, DeepseekV3WithEmbeddings
 from openpsg_tpu_torch.models.llm.llama import (
     LlamaConfig,
     LlamaWithEmbeddings,
     quantize_llama,
+    require_llama,
 )
 from openpsg_tpu_torch.models.relation.head_v4 import (
     HeadV4Config,
@@ -92,7 +96,8 @@ GROUPS = MODULE_GROUPS + ("class_embeds",)
 class PSGv4Config:
     segmenter: SegmenterConfig = SegmenterConfig()
     head: HeadV4Config = HeadV4Config()
-    llm: LlamaConfig = LlamaConfig()
+    # the LLM is built by its config's type: a Llama or a DeepSeek-V3 decoder
+    llm: Union[LlamaConfig, DeepseekV3Config] = LlamaConfig()
     max_new_tokens: int = 16
     # stop decoding once every sequence hit EOS (False: always
     # max_new_tokens trips)
@@ -240,8 +245,13 @@ class PSGv4:
         self.segmenter = build(lambda: OpenSeedSegmenter(c.segmenter), c.segmenter.dtype)
         self.head = build(lambda: RelationHeadV4(c.head, c.segmenter.mask_dim),
                           c.head.qformer.dtype)
-        dense = dataclasses.replace(c.llm, quant=False, act_int8=False)
-        self.llm = build(lambda: LlamaWithEmbeddings(dense), c.llm.dtype)
+        if c.llm.quant:
+            require_llama(c.llm, "an int8 LLM (llm.quant, quantize_llama)")
+        if isinstance(c.llm, DeepseekV3Config):
+            self.llm = build(lambda: DeepseekV3WithEmbeddings(c.llm), c.llm.dtype)
+        else:
+            dense = dataclasses.replace(c.llm, quant=False, act_int8=False)
+            self.llm = build(lambda: LlamaWithEmbeddings(dense), c.llm.dtype)
         if c.llm.quant:
             state = quantize_llama(self.llm.state_dict())
             with torch.device("meta"):

@@ -10,6 +10,12 @@ allocation and fill, the first pick) is the span ``psg.prefill`` and each
 step one ``psg.trip``; the early-exit test, which waits for the card, lies
 between them (``utils/profiling.span``).
 
+The LLM is a Llama (:class:`LlamaWithEmbeddings`, whose cache holds
+(k, v) [n_layers, B, S, kv, hd]) or a DeepSeek-V3 decoder
+(:class:`~openpsg_tpu_torch.models.llm.deepseek_v3.DeepseekV3WithEmbeddings`,
+whose cache holds MLA's latent [n_layers, B, S, R] and k_pe [n_layers, B,
+S, rope]): each takes the same calls.
+
 A tensor-parallel LLM (``parallel.sharding.shard_params``) decodes the
 same way on every tp rank: its cache holds the rank's kv heads, and the
 logits are whole on every rank, so the greedy tokens and the early-exit
@@ -21,14 +27,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn as nn
 
-from openpsg_tpu_torch.models.llm.llama import LlamaWithEmbeddings
 from openpsg_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
 def greedy_decode(
-    model: LlamaWithEmbeddings,
+    model: nn.Module,
     prefix_embeds: torch.Tensor,   # [B, Lp, D]
     prefix_mask: torch.Tensor,     # [B, Lp] bool
     max_new_tokens: int,
@@ -62,9 +68,10 @@ def greedy_decode(
     with span("prefill"):
         logits, (k0, v0) = model(input_embeds=prefix_embeds, attention_mask=prefix_mask,
                                  positions=positions, last_logit_only=True)
-        shape = (c.n_layers, B, S) + tuple(k0.shape[3:])     # the rank's kv heads
-        cache = (torch.zeros(shape, dtype=c.dtype, device=dev),
-                 torch.zeros(shape, dtype=c.dtype, device=dev))
+        # each cache tensor shaped from its own prefill tensor: the Llama's
+        # (k, v) of the rank's kv heads, or MLA's latent and k_pe
+        cache = tuple(torch.zeros((c.n_layers, B, S) + tuple(t.shape[3:]), dtype=c.dtype,
+                                  device=dev) for t in (k0, v0))
         cache[0][:, :, :Lp] = k0
         cache[1][:, :, :Lp] = v0
         tok, score = pick(logits[:, -1])

@@ -74,6 +74,14 @@ class LlamaConfig:
         return dataclasses.replace(self, n_layers=n)
 
 
+def require_llama(cfg, what: str) -> None:
+    """Refuse, by name and before any work, an LLM config of another family
+    on a path that handles only the Llama's (``what`` names the path)."""
+    if not isinstance(cfg, LlamaConfig):
+        raise NotImplementedError(
+            f"{what} handles only a Llama-family LLM (LlamaConfig), not {type(cfg).__name__}")
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()

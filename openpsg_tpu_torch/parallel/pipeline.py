@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
-from openpsg_tpu_torch.models.llm.llama import rope_tables
+from openpsg_tpu_torch.models.llm.llama import require_llama, rope_tables
 from openpsg_tpu_torch.parallel.comm import copy_to_group, permute, reduce_from_group
 from openpsg_tpu_torch.parallel.mesh import axis_group, device_mesh, world
 from openpsg_tpu_torch.parallel.sharding import shard_params
@@ -63,7 +63,9 @@ class _NotOnThisStage(nn.Module):
 
 def shard_pipeline(llm, mesh) -> None:
     """Keep this pp rank's contiguous layers (the others are dropped) and,
-    on a mesh with tp, tp-shard what is left."""
+    on a mesh with tp, tp-shard what is left.  Only a Llama: another
+    family is refused by name."""
+    require_llama(llm.cfg, "parallel.pipeline.shard_pipeline")
     group, s, pp = axis_group(mesh, "pp")
     core = llm.core
     n = len(core.layers)
@@ -87,6 +89,7 @@ def pipelined_llama_logits(model, input_embeds: torch.Tensor, attention_mask: to
     checkpoints each (stage, microbatch) block, so backward keeps one
     microbatch of activations per stage."""
     c = model.cfg
+    require_llama(c, "parallel.pipeline.pipelined_llama_logits")
     core = model.core
     group, s, P = core.pp_group, core.pp_stage, core.pp_size
     lo, hi = core.stage_range

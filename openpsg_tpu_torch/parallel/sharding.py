@@ -144,7 +144,11 @@ def _tp_state(cfg, layout: TPLayout, group, rank: int) -> TPState:
 def shard_params(llm, mesh) -> Dict[str, Spec]:
     """Keep this rank's block of every tensor the plan splits over the
     mesh's ``tp`` dim (the rest is freed), and set the tp runtime on the
-    LLM's modules → {name: spec} of the split tensors ({} without tp)."""
+    LLM's modules → {name: spec} of the split tensors ({} without tp).
+    Only a Llama: another family is refused by name."""
+    from openpsg_tpu_torch.models.llm.llama import require_llama
+
+    require_llama(llm.cfg, "parallel.sharding.shard_params")
     g = axis_group(mesh, "tp")
     if g is None or g[2] <= 1:
         return {}

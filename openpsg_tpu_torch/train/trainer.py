@@ -49,6 +49,7 @@ import torch
 
 from openpsg_tpu_torch.bridge import jax_paths, scan_prefixes
 from openpsg_tpu_torch.models.detectors import mask2former_relation as m2f
+from openpsg_tpu_torch.models.llm.llama import require_llama
 from openpsg_tpu_torch.models.relation.head_v2 import RelationHeadV2
 from openpsg_tpu_torch.models.relation.head_v4 import assemble_pair_instructions, right_align
 from openpsg_tpu_torch.models.segmenter.openseed import normalize_image
@@ -448,7 +449,9 @@ class V4Trainer(_GroupTrainer):
     def __init__(self, pipeline, trainable: Sequence[str] = ("head",),
                  rel_cls_loss_weight: float = 50.0, mesh=None):
         """``mesh``: average over its dp ranks (each passes its own rows
-        to :meth:`train_step`); build the trainer after sharding the LLM."""
+        to :meth:`train_step`); build the trainer after sharding the LLM.
+        Only a Llama LLM: another family is refused by name."""
+        require_llama(pipeline.cfg.llm, "V4Trainer")
         super().__init__(pipeline, trainable, mesh)
         self.rel_cls_loss_weight = rel_cls_loss_weight
 

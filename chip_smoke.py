@@ -596,7 +596,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
     hws = [(H, W), (1200, 1344), (1344, 1000)]  # valid (h, w) inside the bucket
     images = [rng.integers(0, 256, (H, W, 3)).astype(np.uint8) for _ in hws]
-    model.infer(images[0], hws[0])     # warm-up (cuDNN / cuBLAS plans), not counted
+    from openpsg_tpu_torch.models.llm.decode import greedy_decode
+
+    decode_counters = ("graph_captures", "graph_trips", "eager_trips")
+    for k in decode_counters:
+        setattr(greedy_decode, k, 0)
+    model.infer(images[0], hws[0])     # warm-up (cuDNN / cuBLAS plans, the decode graph)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fca.reset_launches()
@@ -628,6 +633,11 @@ def main() -> int:
     check_msda_launches(model, len(images))
     for res in results:
         check_result(res, (H, W))
+    # the LLM's trips replayed from CUDA graphs, the warm-up's capture included
+    counts = {k: getattr(greedy_decode, k) for k in decode_counters}
+    log(f"[main] greedy_decode {counts}")
+    assert counts["eager_trips"] == 0 and counts["graph_trips"] > 0, counts
+    assert counts["graph_captures"] == 1, counts
 
     # ---- 5. kernel times on the main path's own inputs; the head with the
     # plain attention forced, against the kernel
@@ -635,7 +645,8 @@ def main() -> int:
     seg, enc_calls = msda_calls(lambda: model.segment(img))
     msda = enc_calls[0][:4]
     own = model.fuse_select(seg, hws[0])
-    _, calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *own))
+    (_, prefix, pmask), calls = kernel_calls(lambda: model.tail_pre(seg["mask_features"], *own))
+    check_graph_decode(model, prefix, pmask)
     log("[kernel] timing on image 0's first Q-Former layer, as phase 4 ran it")
     time_kernel(torch, fca, *calls[0], skv)
     log("[gather] timing on level 0 of image 0's first pixel-decoder encoder layer")
@@ -3425,6 +3436,31 @@ def synthetic_objects(model, seg, sel, n_obj=30, seed=0):
     valid = t(np.arange(M) < n_obj)
     scores = t(rng.random(M).astype(np.float32))
     return (t(masks), valid, t(lab), t(oid), scores) + tuple(sel[5:])
+
+
+def check_graph_decode(model, prefix, pmask):
+    """Phase 4's LLM decode of one image's prefix at full width, replayed
+    from the shape's CUDA graphs, against the same trips run eagerly (the
+    graph path bypassed): tokens, scores and trips equal bit for bit."""
+    import torch
+
+    from openpsg_tpu_torch.models.llm import decode
+
+    replays = decode.greedy_decode.graph_trips
+    graph = model.tail_decode(prefix, pmask)
+    real = decode._graphs
+    decode._graphs = lambda llm, dev: None
+    try:
+        eager = model.tail_decode(prefix, pmask)
+    finally:
+        decode._graphs = real
+    same = (graph[2] == eager[2] and torch.equal(graph[0], eager[0])
+            and torch.equal(graph[1], eager[1]))
+    log(f"[main] image 0's decode ({prefix.shape[0]} rows): {graph[2]} trips replayed "
+        f"({decode.greedy_decode.graph_trips - replays} graph trips), eager {eager[2]} "
+        f"trips; tokens, scores and trips equal bit for bit: {same}")
+    assert decode.greedy_decode.graph_trips - replays == graph[2] > 0
+    assert same, "graph path's decode differs from the eager trips"
 
 
 def kernel_calls(fn):

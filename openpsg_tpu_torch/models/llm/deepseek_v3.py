@@ -49,7 +49,8 @@ into them.
 Spans: ``psg.mla`` around each attention call, ``psg.moe`` around each
 expert layer, router to combine, shared experts included.  Counters (host
 ints from shapes, no sync): :attr:`MoE.grouped_launches` and
-:attr:`MoE.routed_rows`.
+:attr:`MoE.routed_rows`, bumped through ``utils.graphs.bump``, so that a
+decode trip replayed from CUDA graphs counts as the eager trip does.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from openpsg_tpu_torch.models.llm.llama import RMSNorm, apply_rope, rope_tables
+from openpsg_tpu_torch.models.llm.llama import RMSNorm, apply_rope, cache_slots, rope_tables
+from openpsg_tpu_torch.utils.graphs import bump
 from openpsg_tpu_torch.utils.profiling import span
 
 
@@ -166,7 +168,7 @@ class MLA(nn.Module):
         self.kv_b_proj = nn.Linear(R, H * (c.qk_nope_head_dim + c.v_head_dim), bias=False)
         self.o_proj = nn.Linear(H * c.v_head_dim, c.dim, bias=False)
 
-    def forward(self, h, rot, see, cache=None, cache_index: int = 0):
+    def forward(self, h, rot, see, cache=None, cache_index=0):
         """h [B, L, D]; rot = rope_tables(positions, qk_rope_head_dim);
         see [B, L, K] True where a query may see a key (K = L without a
         cache, the cache's S with one).  ``cache``: this layer's (latent [B,
@@ -187,8 +189,9 @@ class MLA(nn.Module):
             if cache is None:
                 out = self._expanded(q_nope, q_pe, lat, k_pe, masked_out)
             else:
-                cache[0][:, cache_index:cache_index + L] = lat
-                cache[1][:, cache_index:cache_index + L] = k_pe
+                slots = cache_slots(cache_index, L, h.device)
+                cache[0].index_copy_(1, slots, lat.to(cache[0].dtype))
+                cache[1].index_copy_(1, slots, k_pe.to(cache[1].dtype))
                 out = self._absorbed(q_nope, q_pe, cache[0], cache[1], masked_out)
             return self.o_proj(out.reshape(B, L, H * c.v_head_dim)), lat, k_pe
 
@@ -282,7 +285,7 @@ class Experts(nn.Module):
         gate, up = torch._grouped_mm(rows, self.gate_up_proj.transpose(1, 2),
                                      offs=ends).chunk(2, -1)
         y = torch._grouped_mm(F.silu(gate) * up, self.down_proj.transpose(1, 2), offs=ends)
-        MoE.grouped_launches += 2
+        bump(MoE, "grouped_launches", 2)
         back = torch.empty_like(y)
         back[order] = y
         return (back.view(T, k, -1).float() * w[..., None]).sum(1)
@@ -321,7 +324,7 @@ class MoE(nn.Module):
         with span("moe"):
             idx, w = self.gate(h)
             k = idx.shape[-1]
-            MoE.routed_rows += B * L * k
+            bump(MoE, "routed_rows", B * L * k)
             routed = self.experts(h.reshape(-1, D), idx.reshape(-1, k), w.reshape(-1, k))
             shared = self.shared_experts(h).reshape(-1, D)
             return (routed + shared.float()).to(h.dtype).view(B, L, D)
@@ -335,7 +338,7 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(c.dim, c.norm_eps)
         self.mlp = SwiGLU(c.dim, c.ffn_hidden) if dense else MoE(c)
 
-    def forward(self, x, rot, see, cache=None, cache_index: int = 0):
+    def forward(self, x, rot, see, cache=None, cache_index=0):
         a, lat, k_pe = self.self_attn(self.input_layernorm(x), rot, see, cache, cache_index)
         x = x + a
         return x + self.mlp(self.post_attention_layernorm(x)), lat, k_pe
@@ -352,14 +355,15 @@ class DeepseekV3(nn.Module):
 
     def forward(self, input_embeds, attention_mask, positions,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                cache_index: int = 0, key_positions=None, last_logit_only: bool = False):
+                cache_index=0, key_positions=None, last_logit_only: bool = False):
         """input_embeds [B, L, D]; attention_mask [B, S] over keys;
         positions [B, L]; a query sees a valid key whose position is not
         after its own.  Without ``cache``: the L tokens are the keys;
         returns (logits, (latent [n_layers, B, L, R], k_pe [n_layers, B, L,
         rope])).  With ``cache`` (those two, S slots) and ``key_positions``
         [B, S]: the current tokens fill slots [cache_index, cache_index + L)
-        in place, and the cache is returned."""
+        in place, and the cache is returned; ``cache_index`` an int or a 0-d
+        int64 device tensor (``llama.cache_slots``)."""
         c = self.c
         if cache is None:
             kp = positions if key_positions is None else key_positions

@@ -117,6 +117,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def cache_slots(cache_index, L: int, device) -> torch.Tensor:
+    """The cache slots [cache_index, cache_index + L) of the current tokens,
+    an int64 index tensor on ``device``: ``cache_index`` is an int or a 0-d
+    int64 tensor there (a trip's step, so that one CUDA graph of the
+    forward serves every step)."""
+    return torch.arange(L, device=device) + cache_index
+
+
 # the projections QDense replaces under ``quant`` (JAX llama.py:165)
 QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
 
@@ -351,7 +359,7 @@ class Llama(nn.Module):
 
     def forward(self, input_embeds, attention_mask, positions,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                cache_index: int = 0, key_positions=None, last_logit_only=False,
+                cache_index=0, key_positions=None, last_logit_only=False,
                 remat: bool = False, return_hidden: bool = False, full_mask=None):
         """input_embeds [B, L, D]; attention_mask [B, S] over keys;
         positions [B, L].  Without ``cache``: causal attention among the L
@@ -359,7 +367,8 @@ class Llama(nn.Module):
         With ``cache`` ([n_layers, B, S, kv, hd] each) and ``key_positions``
         [B, S]: the current tokens' slots [cache_index, cache_index + L)
         take keys from this call; those keys are written into ``cache`` in
-        place, which is returned.
+        place, which is returned.  ``cache_index`` is an int or a 0-d int64
+        tensor on the cache's device (:func:`cache_slots`).
 
         ``remat`` (training, no cache): each block runs under activation
         checkpointing, so the backward recomputes it instead of keeping its
@@ -398,9 +407,10 @@ class Llama(nn.Module):
             if key_positions is None:
                 raise ValueError("the cache path needs key_positions")
             S = cache[0].shape[2]
+            slots = cache_slots(cache_index, L, dev)
             if full_mask is not None:
                 base = full_mask.to(dev).bool()
-                mask_cur = base[:, :, cache_index:cache_index + L]
+                mask_cur = base.index_select(2, slots)
             elif c.causal:
                 base = key_positions[:, None, :] <= positions[:, :, None]
                 mask_cur = positions[:, None, :] <= positions[:, :, None]
@@ -410,7 +420,7 @@ class Llama(nn.Module):
             slot = torch.arange(S, device=dev)[None, None, :]
             in_cur = (slot >= cache_index) & (slot < cache_index + L)
             mask_cache = base & attention_mask[:, None, :] & ~in_cur
-            cur_valid = attention_mask[:, cache_index:cache_index + L]
+            cur_valid = attention_mask.index_select(1, slots)
             mask_cur = mask_cur & cur_valid[:, None, :]
         x = input_embeds.to(c.dtype)
         rot = rope_tables(positions, hd, c.rope_theta)
@@ -427,8 +437,8 @@ class Llama(nn.Module):
                 ks.append(k)
                 vs.append(v)
             else:
-                cache[0][i, :, cache_index:cache_index + L] = k
-                cache[1][i, :, cache_index:cache_index + L] = v
+                cache[0][i].index_copy_(1, slots, k.to(cache[0].dtype))
+                cache[1][i].index_copy_(1, slots, v.to(cache[1].dtype))
         if remat:
             new_cache = None
         else:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -24,6 +25,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # what the card runs, in a Chrome trace of ``torch.profiler``
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the segmented CUDA graph being captured on this thread, if any
+# (``utils/graphs.py``): a span that opens or closes ends its graph there
+graph_capture = threading.local()
 
 
 @contextlib.contextmanager
@@ -33,7 +37,9 @@ def span(name: str, times: Optional[Dict[str, float]] = None, device=None,
     ``prefix + name``, which a running profiler puts on the same trace and
     clock as the card's kernels and copies (the host calls made inside it
     link to the device work by correlation id).  With no profiler running
-    the range costs only its own host time and no device work.
+    the range costs only its own host time and no device work.  Inside a
+    segmented CUDA graph's capture (``utils/graphs.py``) the block becomes
+    graphs of its own, which each replay launches inside the range.
 
     When ``times`` is a dict, the block's wall ms are also added to
     ``times[name]``, the card (``device``, where it is a CUDA device)
@@ -43,8 +49,13 @@ def span(name: str, times: Optional[Dict[str, float]] = None, device=None,
     if sync:
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
+    rec = getattr(graph_capture, "recorder", None)
+    if rec is not None:
+        rec.boundary(("open", name, prefix))
     with torch.profiler.record_function(prefix + name):
         yield
+        if rec is not None:
+            rec.boundary(("close",))
     if times is not None:
         if sync:
             torch.cuda.synchronize(device)

@@ -360,3 +360,165 @@ def test_llama_only_paths_refuse_the_new_config_by_name(v4moe, path):
     with pytest.raises(NotImplementedError, match="DeepseekV3Config") as e:
         calls[path]()
     assert path.split(".")[-1] in str(e.value)
+
+
+# ------------------------------------------------- the graph path's indexing
+
+
+def _family(family: str, seed: int = 0):
+    """A tiny float32 LLM of either family and a prefix for it."""
+    if family == "llama":
+        c = LlamaConfig.tiny_test()
+        m = LlamaWithEmbeddings(c).eval().requires_grad_(False)
+        init_params(m, torch.Generator().manual_seed(seed))
+    else:
+        c = DeepseekV3Config.tiny_test()
+        m = build(c, seed)
+    x, mask, _ = inputs(DeepseekV3Config.tiny_test(), L=7, seed=seed + 6)
+    return m, x, mask
+
+
+@pytest.mark.parametrize("L", [1, 2])
+@pytest.mark.parametrize("family", ["llama", "llama_full_mask", "deepseek"])
+def test_device_cache_index_matches_the_int_index(family, L):
+    """A forward over the cache at ``cache_index`` given as a 0-d int64
+    tensor (the graph path's) writes the same cache and gives the same
+    logits, bit for bit, as the int index (the Llama's ``full_mask`` too,
+    sliced at the index)."""
+    m, x, mask = _family(family.split("_")[0])
+    c = m.cfg
+    B, Lp, S = x.shape[0], 5, 9
+    pos = torch.clamp(torch.cumsum(mask.long(), 1) - 1, min=0)
+    with torch.no_grad():
+        _, (k0, v0) = m(input_embeds=x[:, :Lp], attention_mask=mask[:, :Lp],
+                        positions=pos[:, :Lp], last_logit_only=True)
+        cache = tuple(torch.zeros((c.n_layers, B, S) + t.shape[3:]) for t in (k0, v0))
+        cache[0][:, :, :Lp], cache[1][:, :, :Lp] = k0, v0
+        key_mask = torch.cat([mask[:, :Lp], torch.ones(B, S - Lp, dtype=torch.bool)], 1)
+        key_pos = torch.cat([pos[:, :Lp], pos[:, Lp - 1:Lp] + torch.arange(1, S - Lp + 1)], 1)
+        kw = {}
+        if family == "llama_full_mask":     # each query sees every other key
+            see = torch.ones(B, L, S, dtype=torch.bool)
+            see[:, :, 1::2] = False
+            kw["full_mask"] = see
+        out = {}
+        for index in (Lp, torch.tensor(Lp)):
+            kv = tuple(t.clone() for t in cache)
+            logits, back = m(input_embeds=x[:, Lp:Lp + L], attention_mask=key_mask,
+                             positions=key_pos[:, Lp:Lp + L], cache=kv, cache_index=index,
+                             key_positions=key_pos, **kw)
+            assert back is kv
+            out[type(index)] = (logits, kv)
+    (li, (ki, vi)), (lt, (kt, vt)) = out[int], out[torch.Tensor]
+    assert torch.equal(li, lt) and torch.equal(ki, kt) and torch.equal(vi, vt)
+    assert not torch.equal(ki, cache[0])
+
+
+def _state_path(monkeypatch):
+    """greedy_decode's graph path on the CPU, the "capture" and each
+    "replay" running the trip eagerly: its kept states and their indexing,
+    without graphs.  → the kept :class:`DecodeGraphs`."""
+    from types import SimpleNamespace
+
+    from openpsg_tpu_torch.models.llm import decode
+
+    kept = decode.DecodeGraphs(torch.device("cpu"))
+    monkeypatch.setattr(decode, "_graphs", lambda model, dev: kept)
+    monkeypatch.setattr(decode.SegmentedGraph, "capture",
+                        lambda fn, modules, stream: fn() or SimpleNamespace(replay=fn))
+    return kept
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_decode_state_trip_matches_the_eager_loop(family, monkeypatch):
+    """A state kept across calls (the graph path's, run eagerly on the
+    CPU) gives the tokens, scores and trips of a state made for each call,
+    bit for bit, with each picked token as EOS (rows stop at different
+    trips, and all of them before the cap for some), with another pad id,
+    with budgets, and over the cap; one state serves every EOS and pad."""
+    m, x, mask = _family(family)
+    T = 6
+    with torch.no_grad():
+        free = greedy_decode(m, x, mask, T, eos_id=-1, pad_id=0)
+        cases = [dict(eos_id=e) for e in sorted(set(free[0].flatten().tolist()))]
+        cases += [dict(eos_id=-1, trip_budget=b) for b in (1, 3, T + 4)]
+        cases += [dict(eos_id=cases[0]["eos_id"], early_exit=False),
+                  dict(eos_id=int(free[0][0, 1]), pad_id=3)]
+        want = [greedy_decode(m, x, mask, T, **dict(dict(pad_id=0), **kw)) for kw in cases]
+        with monkeypatch.context() as mp:
+            kept = _state_path(mp)
+            got = [greedy_decode(m, x, mask, T, **dict(dict(pad_id=0), **kw)) for kw in cases]
+    for g, w in zip(got, want):
+        assert g[2] == w[2]
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    assert min(w[2] for w in want) < T
+    assert any(bool((w[0] == 0).any()) and w[2] == T for w in want)
+    assert bool((want[-1][0] == 3).any())
+    assert len(kept.states) == 1
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_decode_states_keep_the_last_used_shapes(family, monkeypatch):
+    """The kept states are the ``KEPT`` decode shapes used last: a shape
+    used again keeps its state, and the least recently used goes first;
+    each call decodes as a state made for it does."""
+    m, x, mask = _family(family)
+    rows = [1, 2, 3, 4, 5, 2, 6]
+    take = [torch.arange(b) % x.shape[0] for b in rows]
+    with torch.no_grad():
+        want = [greedy_decode(m, x[i], mask[i], 4, eos_id=-1) for i in take]
+        with monkeypatch.context() as mp:
+            kept = _state_path(mp)
+            got, seen = [], {}
+            for b, i in zip(rows, take):
+                got.append(greedy_decode(m, x[i], mask[i], 4, eos_id=-1))
+                key = next(reversed(kept.states))
+                assert key[0] == b
+                seen.setdefault(b, []).append(kept.states[key])
+    for g, w in zip(got, want):
+        assert g[2] == w[2]
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+    assert seen[2][0] is seen[2][1]
+    assert [k[0] for k in kept.states] == [4, 5, 2, 6]
+    assert kept.KEPT == 4
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_cpu_decode_runs_its_trips_eagerly(family):
+    """On the CPU the graph path never engages: every trip counts as eager."""
+    m, x, mask = _family(family)
+    counters = ("graph_captures", "graph_trips", "eager_trips")
+    before = {k: getattr(greedy_decode, k) for k in counters}
+    with torch.no_grad():
+        trips = [greedy_decode(m, x, mask, 5, eos_id=-1, pad_id=0, trip_budget=b)[2]
+                 for b in (None, 2)]
+    ran = {k: getattr(greedy_decode, k) - before[k] for k in counters}
+    assert ran == {"graph_captures": 0, "graph_trips": 0, "eager_trips": sum(trips)}
+    assert trips == [5, 2]
+    assert "_decode_graphs" not in vars(m)
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_decode_states_are_dropped_when_weights_move_or_hooks_change(family):
+    """A graph reads its weights at fixed addresses and splits where a hook
+    runs: loading weights with ``assign=True`` (as the benchmark hands them
+    over) or hooking another module drops the captured states."""
+    from openpsg_tpu_torch.models.llm.decode import DecodeGraphs
+
+    m, _, _ = _family(family)
+    kept = DecodeGraphs(torch.device("cpu"))
+    kept.refresh(m)
+    kept.states["shape"] = "state"
+    kept.refresh(m)
+    assert kept.states == {"shape": "state"}
+    m.load_state_dict({k: v.clone() for k, v in m.state_dict().items()}, assign=True)
+    kept.refresh(m)
+    assert kept.states == {}
+    kept.states["shape"] = "state"
+    handle = m.core.lm_head.register_forward_hook(lambda mod, args, out: None)
+    kept.refresh(m)
+    assert kept.states == {}
+    handle.remove()
+    kept.states["shape"] = "state"
+    kept.refresh(m)
+    assert kept.states == {}

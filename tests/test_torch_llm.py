@@ -99,10 +99,14 @@ def test_greedy_decode_matches(llm, early_exit, budget):
     fns = llm[5]
     jb = jnp.int32(STEPS if budget is None else budget)
     wt, ws, wtrips = jax.device_get(fns[early_exit](jb))
+    eager, graphed = greedy_decode.eager_trips, greedy_decode.graph_trips
     gt, gs, gtrips = _port_decode(llm, early_exit, budget)
     np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), **TOL)
     assert gtrips == int(wtrips)
+    # the CPU takes the eager loop: every trip counted there, none replayed
+    assert greedy_decode.eager_trips - eager == gtrips
+    assert greedy_decode.graph_trips == graphed
 
 
 def test_budget_caps_trips_without_early_exit(llm):

@@ -1566,7 +1566,7 @@ def phase_train_int8(torch, skv):
     """Phase 8d: ``openpsg_tpu_torch.tools.train.main`` at full
     ``baseline_v4_ov`` width through the int8 Llama-2-7B (``--cfg-options
     tpu.llm_int8=True``: weight-only, bf16 activations, the card's
-    ``torch.mm(..., out_dtype=float32)`` under autograd), the model built
+    ``mm_f32``'s ``out_dtype`` product under autograd), the model built
     by the tool itself, 2 steps on 2 of phase 8's train images: finite
     losses, no shared-KV launch; s/step and peak memory."""
     import shutil

@@ -47,9 +47,35 @@ def conv_hwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
-    """einsum with float32 products and sums (``preferred_element_type=
-    float32`` in the JAX package)."""
+    """The two-operand einsum ``eq`` with exact products summed in float32
+    (the JAX package's ``preferred_element_type=float32``), for the whole
+    port.  The rule: on CUDA, with both operands in one 16-bit dtype and no
+    gradient needed, one ``torch.bmm(..., out_dtype=float32)`` planned
+    from ``eq`` (:func:`bmm_einsum`); else (the CPU, float32 operands, a
+    gradient: ``out_dtype`` has neither a CPU kernel nor a derivative)
+    both operands widened to float32."""
+    if (a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16, torch.float16)
+            and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad))):
+        return bmm_einsum(a, b, eq, out_dtype=torch.float32)
     return torch.einsum(eq, a.float(), b.float())
+
+
+def bmm_einsum(a: torch.Tensor, b: torch.Tensor, eq: str, **bmm_kw) -> torch.Tensor:
+    """``eq`` planned as one ``torch.bmm(A, B, **bmm_kw)``: the batch dims
+    are the indices in both operands and the output, the contracted dims
+    those in both operands only, each operand's free dims those it shares
+    with the output only; permute and reshape in, view and permute out."""
+    ins, out = eq.split("->")
+    ia, ib = ins.split(",")
+    batch = [i for i in out if i in ia and i in ib]
+    red = [i for i in ia if i in ib and i not in out]
+    fa, fb = [i for i in ia if i not in ib], [i for i in ib if i not in ia]
+    size = {**dict(zip(ia, a.shape)), **dict(zip(ib, b.shape))}
+    n = lambda idx: math.prod(size[i] for i in idx)
+    A = a.permute([ia.index(i) for i in batch + fa + red]).reshape(n(batch), n(fa), n(red))
+    B = b.permute([ib.index(i) for i in batch + red + fb]).reshape(n(batch), n(red), n(fb))
+    y = torch.bmm(A, B, **bmm_kw).view([size[i] for i in batch + fa + fb])
+    return y.permute([(batch + fa + fb).index(i) for i in out])
 
 
 @torch.no_grad()

@@ -31,8 +31,8 @@ only ``c`` and the roped ``k_pe`` per token (``kv_lora_rank +
 qk_rope_head_dim`` values a token a layer) and computes the absorbed form:
 ``W_UK`` (the ``k_nope`` rows of ``kv_b_proj``) is folded into the query,
 ``q_nope·k_nope = (q_nope·W_UK)·c``, the heads attend over the latent, and
-``W_UV`` is applied after, ``p·v = (p·c)·W_UVᵀ``.  Scores come from float32
-sums into float32 (:func:`bmm_f32`); the cache stays in the model's dtype.
+``W_UV`` is applied after, ``p·v = (p·c)·W_UVᵀ``.  Scores are float32 sums
+of exact products (``common.mm_f32``); the cache stays in the model's dtype.
 
 Expert layer (``noaux_tc`` routing with one group, as Moonlight's config):
 ``s = sigmoid(h·W_gateᵀ)`` in float32; the choice is the top
@@ -62,7 +62,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from openpsg_tpu_torch.models.llm.llama import RMSNorm, apply_rope, cache_slots, rope_tables
+from openpsg_tpu_torch.models.common import mm_f32
+from openpsg_tpu_torch.models.llm.llama import (
+    RMSNorm,
+    apply_rope,
+    cache_slots,
+    rope_tables,
+    visibility,
+)
 from openpsg_tpu_torch.utils.graphs import bump
 from openpsg_tpu_torch.utils.profiling import span
 
@@ -122,15 +129,6 @@ class DeepseekV3Config:
             qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16, ffn_hidden=128,
             first_k_dense=1, moe_hidden=32, n_routed_experts=8, n_shared_experts=1,
             experts_per_token=2, dtype=torch.float32)
-
-
-def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [N, M, K] times b [N, K, P] → float32 [N, M, P]: float32 sums of
-    exact products, on the card without widening bf16 operands (the CPU's
-    bmm has no float32 output for them, so it widens)."""
-    if a.is_cuda and a.dtype != torch.float32:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
 
 
 def rope_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -201,10 +199,9 @@ class MLA(nn.Module):
         B, L, H, _ = q_nope.shape
         kv = self.kv_b_proj(lat).view(B, L, H, c.qk_nope_head_dim + c.v_head_dim)
         k_nope, v = kv.split([c.qk_nope_head_dim, c.v_head_dim], -1)
-        q = torch.cat([q_nope, q_pe], -1).transpose(1, 2).reshape(B * H, L, -1)
+        q = torch.cat([q_nope, q_pe], -1)
         k = torch.cat([k_nope, k_pe[:, :, None].expand(B, L, H, -1)], -1)
-        k = k.transpose(1, 2).reshape(B * H, L, -1)
-        scores = bmm_f32(q, k.transpose(1, 2)).view(B, H, L, L)
+        scores = mm_f32(q, k, "blhd,bmhd->bhlm")
         scale = (c.qk_nope_head_dim + c.qk_rope_head_dim) ** -0.5
         attn = torch.softmax((scores * scale).masked_fill(masked_out[:, None], -1e9), -1)
         out = torch.matmul(attn.to(v.dtype), v.transpose(1, 2))      # [B, H, L, v]
@@ -219,8 +216,8 @@ class MLA(nn.Module):
         w = self.kv_b_proj.weight.view(H, c.qk_nope_head_dim + c.v_head_dim, c.kv_lora_rank)
         w_uk, w_uv = w[:, :c.qk_nope_head_dim], w[:, c.qk_nope_head_dim:]
         q_lat = torch.einsum("blhd,hdr->blhr", q_nope, w_uk).reshape(B, L * H, -1)
-        scores = bmm_f32(q_lat, c_kv.transpose(1, 2)) \
-            + bmm_f32(q_pe.reshape(B, L * H, -1), pe_kv.transpose(1, 2))   # [B, L·H, S]
+        scores = mm_f32(q_lat, c_kv, "bqr,bsr->bqs") \
+            + mm_f32(q_pe.reshape(B, L * H, -1), pe_kv, "bqe,bse->bqs")     # [B, L·H, S]
         scale = (c.qk_nope_head_dim + c.qk_rope_head_dim) ** -0.5
         mask = masked_out[:, :, None].expand(B, L, H, -1).reshape(B, L * H, -1)
         attn = torch.softmax((scores * scale).masked_fill(mask, -1e9), -1)
@@ -244,7 +241,8 @@ class Router(nn.Module):
     def forward(self, h):
         """h [..., D] → (experts [..., k] int64, weights [..., k] float32)."""
         c = self.c
-        scores = torch.sigmoid(F.linear(h.float(), self.weight.float()))
+        logits = mm_f32(h.reshape(-1, h.shape[-1]), self.weight, "td,ed->te")
+        scores = torch.sigmoid(logits.view(*h.shape[:-1], -1))
         choice = scores + self.e_score_correction_bias.float()
         idx = torch.topk(choice, c.experts_per_token, dim=-1).indices
         w = scores.gather(-1, idx)
@@ -365,13 +363,9 @@ class DeepseekV3(nn.Module):
         in place, and the cache is returned; ``cache_index`` an int or a 0-d
         int64 device tensor (``llama.cache_slots``)."""
         c = self.c
-        if cache is None:
-            kp = positions if key_positions is None else key_positions
-        elif key_positions is None:
+        if cache is not None and key_positions is None:
             raise ValueError("the cache path needs key_positions")
-        else:
-            kp = key_positions
-        see = (kp[:, None, :] <= positions[:, :, None]) & attention_mask[:, None, :].bool()
+        see = visibility(positions, attention_mask, key_positions)
         rot = rope_tables(positions, c.qk_rope_head_dim, c.rope_theta)
         x = input_embeds.to(c.dtype)
         lats, pes = [], []

@@ -3,9 +3,10 @@ RMSNorm, rotate-half RoPE, grouped-query attention, SwiGLU; dense
 projections, or int8 ones (:class:`QDense`, ``LlamaConfig.quant``) with
 the optional int8-activation prefill (``act_int8``).  A forward without a
 cache attends among its own tokens (prefill) and returns their (k, v); a
-forward with a cache reads it as read-only keys plus the current tokens'
-own keys, then writes those keys into the cache in place (the JAX version
-returns an updated copy).
+forward with a cache writes the current tokens' keys into it in place
+(the JAX version returns an updated copy), then attends over the whole
+cache once, as the DeepSeek-V3 decoder's latent attention does.  Who
+sees whom is :func:`visibility`, for both families and the pipeline.
 
 Tensor parallel: :func:`openpsg_tpu_torch.parallel.sharding.shard_params`
 keeps each tp rank's block of the split weights and sets ``tp`` on the
@@ -106,6 +107,21 @@ def rope_tables(positions: torch.Tensor, hd: int, theta: float):
     return torch.cos(angles)[:, :, None], torch.sin(angles)[:, :, None]
 
 
+def visibility(positions, attention_mask, key_positions=None, causal: bool = True,
+               full_mask=None) -> torch.Tensor:
+    """[B, L, S] bool, True where a query may see a key: ``full_mask`` where
+    given, else the causal rule ``key_positions ≤ positions`` (keys at
+    ``positions`` by default), or every key where not ``causal``; each
+    and-ed with the valid keys ``attention_mask`` [B, S]."""
+    valid = attention_mask.bool()[:, None, :]
+    if full_mask is not None:
+        return full_mask.to(valid.device).bool() & valid
+    if not causal:
+        return valid.expand(positions.shape[0], positions.shape[1], -1)
+    kp = positions if key_positions is None else key_positions
+    return (kp[:, None, :] <= positions[:, :, None]) & valid
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate-half rotary embedding of x [B, L, H, hd], in float32."""
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -150,12 +166,7 @@ class _WeightOnlyMM(torch.autograd.Function):
     def forward(ctx, x, w_q):
         ctx.save_for_backward(w_q)
         ctx.x_dtype = x.dtype
-        if x.dtype == torch.float32 or not x.is_cuda:
-            return x.float() @ w_q.float().t()
-        # the same sums on the card without widening the weights to
-        # float32; PyTorch's mm with out_dtype has no CPU kernel and no
-        # derivative (hence this Function)
-        return torch.mm(x, w_q.to(x.dtype).t(), out_dtype=torch.float32)
+        return mm_f32(x, w_q.to(x.dtype), "mk,nk->mn")
 
     @staticmethod
     def backward(ctx, grad_y):
@@ -260,12 +271,8 @@ def _row_parallel(layer: nn.Module, x: torch.Tensor, tp) -> torch.Tensor:
         return layer(x)
     if isinstance(layer, QDense):
         return layer(x, tp_group=tp.group)
-    if x.is_cuda and x.dtype != torch.float32 and not torch.is_grad_enabled():
-        part = torch.mm(x.reshape(-1, x.shape[-1]), layer.weight.t(),
-                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
-    else:
-        part = x.float() @ layer.weight.float().t()
-    return reduce_from_group(part, tp.group).to(x.dtype)
+    part = mm_f32(x.reshape(-1, x.shape[-1]), layer.weight, "mk,nk->mn")
+    return reduce_from_group(part, tp.group).to(x.dtype).reshape(*x.shape[:-1], -1)
 
 
 def _kv_heads(layer: nn.Module, h: torch.Tensor, tp) -> torch.Tensor:
@@ -295,11 +302,14 @@ class LlamaBlock(nn.Module):
         self.w_up = _dense(c, c.dim, c.ffn_hidden)
         self.w_down = _dense(c, c.ffn_hidden, c.dim)
 
-    def forward(self, x, rot, masked_out, ck, cv):
-        """x [B, L, D]; rot = rope_tables(positions); ck/cv [B, S, kv, hd]
-        read-only (S may be 0); masked_out [B, 1, L, S + L] is True where a
-        query may NOT see a key ([cache ; current]) → (x, k, v of the
-        current tokens)."""
+    def forward(self, x, rot, masked_out, cache=None, slots=None):
+        """x [B, L, D]; rot = rope_tables(positions); masked_out [B, L, S]
+        True where a query may NOT see a key (``~visibility``).  ``cache``:
+        this layer's (k, v) [B, S, kv, hd]; the current tokens' k and v are
+        written at ``slots`` first, then the queries attend over the S
+        cached keys.  Without one the L tokens are the keys (S = L).  Each
+        kv head serves its ``rep`` query heads as one group, without
+        copies.  → (x, k, v of the current tokens)."""
         c = self.c
         B, L, _ = x.shape
         hd = c.dim // c.n_heads
@@ -319,17 +329,16 @@ class LlamaBlock(nn.Module):
             n = tp.kv_local if split_q else c.n_kv_heads
             k = apply_rope(self.wk(h).reshape(B, L, n, hd), *rot)
             v = self.wv(h).reshape(B, L, n, hd)
-        rep = heads // k.shape[2]
-        expand = (lambda t: t.repeat_interleave(rep, dim=2)) if rep > 1 else (lambda t: t)
-        S = ck.shape[1]
-        scores = mm_f32(q, expand(k), "blhd,bmhd->bhlm")
-        if S:     # [cache ; current]
-            scores = torch.cat([mm_f32(q, expand(ck.to(q.dtype)), "blhd,bmhd->bhlm"), scores], -1)
-        attn = scores * (hd ** -0.5)
-        attn = torch.softmax(attn.masked_fill(masked_out, -1e9), dim=-1).to(x.dtype)
-        out = torch.einsum("bhlm,bmhd->blhd", attn[..., S:], expand(v))
-        if S:
-            out = torch.einsum("bhlm,bmhd->blhd", attn[..., :S], expand(cv.to(v.dtype))) + out
+        keys, values = k, v
+        if cache is not None:
+            keys, values = cache
+            keys.index_copy_(1, slots, k.to(keys.dtype))
+            values.index_copy_(1, slots, v.to(values.dtype))
+        groups = k.shape[2]
+        scores = mm_f32(q.view(B, L, groups, heads // groups, hd), keys, "blgrd,bmgd->bgrlm")
+        attn = (scores * (hd ** -0.5)).masked_fill(masked_out[:, None, None], -1e9)
+        attn = torch.softmax(attn, dim=-1).to(x.dtype)
+        out = torch.einsum("bgrlm,bmgd->blgrd", attn, values)
         out = out.reshape(B, L, heads * hd)
         x = x + (_row_parallel(self.wo, out, tp) if split_q else self.wo(out))
         h = self.ffn_norm(x)
@@ -362,13 +371,14 @@ class Llama(nn.Module):
                 cache_index=0, key_positions=None, last_logit_only=False,
                 remat: bool = False, return_hidden: bool = False, full_mask=None):
         """input_embeds [B, L, D]; attention_mask [B, S] over keys;
-        positions [B, L].  Without ``cache``: causal attention among the L
-        tokens, returns (logits, (k, v) stacked [n_layers, B, L, kv, hd]).
-        With ``cache`` ([n_layers, B, S, kv, hd] each) and ``key_positions``
-        [B, S]: the current tokens' slots [cache_index, cache_index + L)
-        take keys from this call; those keys are written into ``cache`` in
-        place, which is returned.  ``cache_index`` is an int or a 0-d int64
-        tensor on the cache's device (:func:`cache_slots`).
+        positions [B, L]; who sees whom is :func:`visibility`.  Without
+        ``cache``: attention among the L tokens, returns (logits, (k, v)
+        stacked [n_layers, B, L, kv, hd]).  With ``cache`` ([n_layers, B,
+        S, kv, hd] each) and ``key_positions`` [B, S]: each layer writes the
+        current tokens' keys into slots [cache_index, cache_index + L) of
+        ``cache`` in place, then attends over its S slots; the cache is
+        returned.  ``cache_index`` is an int or a 0-d int64 tensor on the
+        cache's device (:func:`cache_slots`).
 
         ``remat`` (training, no cache): each block runs under activation
         checkpointing, so the backward recomputes it instead of keeping its
@@ -390,55 +400,23 @@ class Llama(nn.Module):
         if self.stage_range is not None:
             raise ValueError("a pipeline stage holds some layers only: run it through "
                              "parallel.pipeline.pipelined_llama_logits")
-        B, L, _ = input_embeds.shape
-        hd = c.dim // c.n_heads
-        dev = input_embeds.device
-        if cache is None:
-            kp = positions if key_positions is None else key_positions
-            if full_mask is not None:
-                mask_cur = full_mask.to(dev).bool() & attention_mask[:, None, :]
-            elif c.causal:
-                mask_cur = (kp[:, None, :] <= positions[:, :, None]) & attention_mask[:, None, :]
-            else:
-                mask_cur = attention_mask[:, None, :].expand(B, L, attention_mask.shape[1])
-            mask_cache = torch.zeros(B, L, 0, dtype=torch.bool, device=dev)
-            empty = torch.zeros(B, 0, c.n_kv_heads, hd, dtype=c.dtype, device=dev)
-        else:
-            if key_positions is None:
-                raise ValueError("the cache path needs key_positions")
-            S = cache[0].shape[2]
-            slots = cache_slots(cache_index, L, dev)
-            if full_mask is not None:
-                base = full_mask.to(dev).bool()
-                mask_cur = base.index_select(2, slots)
-            elif c.causal:
-                base = key_positions[:, None, :] <= positions[:, :, None]
-                mask_cur = positions[:, None, :] <= positions[:, :, None]
-            else:
-                base = torch.ones(B, L, S, dtype=torch.bool, device=dev)
-                mask_cur = torch.ones(B, L, L, dtype=torch.bool, device=dev)
-            slot = torch.arange(S, device=dev)[None, None, :]
-            in_cur = (slot >= cache_index) & (slot < cache_index + L)
-            mask_cache = base & attention_mask[:, None, :] & ~in_cur
-            cur_valid = attention_mask.index_select(1, slots)
-            mask_cur = mask_cur & cur_valid[:, None, :]
+        if cache is not None and key_positions is None:
+            raise ValueError("the cache path needs key_positions")
+        L = input_embeds.shape[1]
+        slots = None if cache is None else cache_slots(cache_index, L, input_embeds.device)
+        masked_out = ~visibility(positions, attention_mask, key_positions, c.causal, full_mask)
         x = input_embeds.to(c.dtype)
-        rot = rope_tables(positions, hd, c.rope_theta)
-        masked_out = ~torch.cat([mask_cache, mask_cur], dim=-1)[:, None]
+        rot = rope_tables(positions, c.dim // c.n_heads, c.rope_theta)
         ks, vs = [], []
         for i, layer in enumerate(self.layers):
-            ck, cv = (empty, empty) if cache is None else (cache[0][i], cache[1][i])
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, rot, masked_out, ck, cv, use_reentrant=False)[0]
+                    layer, x, rot, masked_out, use_reentrant=False)[0]
                 continue
-            x, k, v = layer(x, rot, masked_out, ck, cv)
-            if cache is None:
-                ks.append(k)
-                vs.append(v)
-            else:
-                cache[0][i].index_copy_(1, slots, k.to(cache[0].dtype))
-                cache[1][i].index_copy_(1, slots, v.to(cache[1].dtype))
+            layer_cache = None if cache is None else (cache[0][i], cache[1][i])
+            x, k, v = layer(x, rot, masked_out, layer_cache, slots)
+            ks.append(k)
+            vs.append(v)
         if remat:
             new_cache = None
         else:

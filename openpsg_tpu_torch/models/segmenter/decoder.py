@@ -110,7 +110,7 @@ class QueryDecoder(nn.Module):
         self.logit_scale.fill_(2.659)  # ln(1/0.07)
 
     def _class_logits(self, x, class_embeds):
-        proj = x.float() @ self.class_embed.float()
+        proj = mm_f32(x, self.class_embed, "qc,cp->qp")
         proj = proj / (torch.linalg.norm(proj, dim=-1, keepdim=True) + 1e-6)
         return (proj @ class_embeds.float().T) * torch.exp(self.logit_scale.float())
 

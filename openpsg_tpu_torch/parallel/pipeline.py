@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
-from openpsg_tpu_torch.models.llm.llama import require_llama, rope_tables
+from openpsg_tpu_torch.models.llm.llama import require_llama, rope_tables, visibility
 from openpsg_tpu_torch.parallel.comm import copy_to_group, permute, reduce_from_group
 from openpsg_tpu_torch.parallel.mesh import axis_group, device_mesh, world
 from openpsg_tpu_torch.parallel.sharding import shard_params
@@ -98,17 +98,12 @@ def pipelined_llama_logits(model, input_embeds: torch.Tensor, attention_mask: to
     mb = B // n_micro
     dev = input_embeds.device
 
-    if c.causal:
-        mask = (positions[:, None, :] <= positions[:, :, None]) & attention_mask[:, None, :]
-    else:
-        mask = attention_mask[:, None, :].expand(B, L, L)
-    masked_out = ~mask[:, None]                                        # [B, 1, L, L]
-    empty = torch.zeros(mb, 0, c.n_kv_heads, c.dim // c.n_heads, dtype=c.dtype, device=dev)
+    masked_out = ~visibility(positions, attention_mask, causal=c.causal)     # [B, L, L]
     emb = copy_to_group(input_embeds, group)
 
     def run_stage(x, rot, mo):
         for i in range(lo, hi):
-            x = core.layers[i](x, rot, mo, empty, empty)[0]
+            x = core.layers[i](x, rot, mo)[0]
         return x
 
     token = torch.zeros((), device=dev, requires_grad=torch.is_grad_enabled())

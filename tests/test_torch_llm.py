@@ -124,6 +124,38 @@ def test_budget_prefix_agrees_with_uncapped(llm):
         assert (t[:, b:] == 0).all()
 
 
+def test_cached_trip_at_a_tensor_index_equals_the_uncached_last_row(llm):
+    """Grouped-query attention (4 query heads on 2 kv heads): a trip that
+    writes its token's keys into the cache at a 0-d tensor ``cache_index``
+    and attends over the cache once gives the logits of the uncached
+    forward's last row over the same tokens."""
+    port, prefix, mask = llm[2], torch.from_numpy(llm[3]), torch.from_numpy(llm[4])
+    c = port.cfg
+    assert (c.n_heads, c.n_kv_heads) == (4, 2)
+    B, Lp, _ = prefix.shape
+    step = torch.from_numpy(np.random.default_rng(3).normal(size=(B, 1, c.dim)).astype(np.float32))
+    full_mask = torch.cat([mask, torch.ones(B, 1, dtype=torch.bool)], 1)
+    pos = torch.clamp(torch.cumsum(full_mask.long(), 1) - 1, min=0)
+    with torch.no_grad():
+        want, _ = port(input_embeds=torch.cat([prefix, step], 1), attention_mask=full_mask,
+                       positions=pos)
+        _, (k0, v0) = port(input_embeds=prefix, attention_mask=mask, positions=pos[:, :Lp])
+        shape = k0.shape[:2] + (Lp + 3,) + k0.shape[3:]
+        cache = (torch.zeros(shape), torch.zeros(shape))
+        cache[0][:, :, :Lp], cache[1][:, :, :Lp] = k0, v0
+        key_mask = torch.zeros(B, Lp + 3, dtype=torch.bool)
+        key_mask[:, :Lp + 1] = full_mask
+        key_pos = torch.zeros(B, Lp + 3, dtype=torch.long)
+        key_pos[:, :Lp + 1] = pos
+        got, _ = port(input_embeds=step, attention_mask=key_mask, positions=pos[:, Lp:],
+                      cache=cache, cache_index=torch.tensor(Lp), key_positions=key_pos)
+    np.testing.assert_allclose(got[:, 0].numpy(), want[:, -1].numpy(), atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        _, (k1, _) = port(input_embeds=torch.cat([prefix, step], 1), attention_mask=full_mask,
+                          positions=pos)
+    np.testing.assert_allclose(cache[0][:, :, Lp].numpy(), k1[:, :, Lp].numpy(), atol=1e-6)
+
+
 # ------------------------------------------------------------------ int8
 
 

@@ -27,8 +27,12 @@ Phases, each fatal on failure:
      through ``infer`` and with an int8 bf16 LLM through
      ``infer_microbatch`` (3 images, int8-activation prefill); one
      ``ms_deform_attn`` launch per deformable layer and image (15), no
-     plain call;
-  5. the kernels' times, the plain versions', the library's and the bound
+     plain call; the segmenter captured once in the warm-up and replayed
+     from its CUDA graph once an image after it, never eagerly;
+  5. the segmenter's output on the main path (its graph) against its
+     eager call, bit for bit, on each image whose deformable-attention
+     inputs are recorded; the kernels' times, the plain versions', the
+     library's and the bound
      on the main path's own inputs (image 0, CUDA events around 10
      back-to-back calls, median per call with its interquartile range): the shared-KV kernel on the first Q-Former
      layer's inputs (its hopper variant, the simple variant called
@@ -597,12 +601,21 @@ def main() -> int:
     hws = [(H, W), (1200, 1344), (1344, 1000)]  # valid (h, w) inside the bucket
     images = [rng.integers(0, 256, (H, W, 3)).astype(np.uint8) for _ in hws]
     from openpsg_tpu_torch.models.llm.decode import greedy_decode
+    from openpsg_tpu_torch.utils.graphs import graphed_call
 
     decode_counters = ("graph_captures", "graph_trips", "eager_trips")
+    segment_counters = ("graph_captures", "graph_calls", "eager_calls")
     for k in decode_counters:
         setattr(greedy_decode, k, 0)
-    model.infer(images[0], hws[0])     # warm-up (cuDNN / cuBLAS plans, the decode graph)
+    for k in segment_counters:
+        setattr(graphed_call, k, 0)
+    # warm-up (cuDNN / cuBLAS plans, the segmenter's graph, the decode graph)
+    model.infer(images[0], hws[0])
     torch.cuda.synchronize()
+    warm = {k: getattr(graphed_call, k) for k in segment_counters}
+    assert warm == {"graph_captures": 1, "graph_calls": 1, "eager_calls": 0}, warm
+    for k in segment_counters:
+        setattr(graphed_call, k, 0)
     torch.cuda.reset_peak_memory_stats()
     fca.reset_launches()
     mg.sparse_row_gather.launches = 0
@@ -638,6 +651,11 @@ def main() -> int:
     log(f"[main] greedy_decode {counts}")
     assert counts["eager_trips"] == 0 and counts["graph_trips"] > 0, counts
     assert counts["graph_captures"] == 1, counts
+    # the segmenter replayed from its graph: one call an image, nothing captured anew
+    seg_counts = {k: getattr(graphed_call, k) for k in segment_counters}
+    log(f"[main] graphed_call {seg_counts} (after the warm-up's capture)")
+    assert seg_counts == {"graph_captures": 0, "graph_calls": len(images),
+                          "eager_calls": 0}, seg_counts
 
     # ---- 5. kernel times on the main path's own inputs; the head with the
     # plain attention forced, against the kernel
@@ -753,12 +771,19 @@ def phase_gather(torch, results):
 
 
 def msda_calls(fn):
-    """Run ``fn()`` with the segmenter's ``ms_deform_attn`` recorded → (its
-    result, the arguments of every call in order: value, spatial shapes,
-    locations, weights and points per level; the pixel decoder's encoder
-    layers first, then the query decoder's)."""
+    """Run ``fn()``, a ``segment`` call, on the main path (replayed from the
+    segmenter's CUDA graph on the card), then once more eagerly with the
+    segmenter's ``ms_deform_attn`` recorded, and require the two results to
+    be equal bit for bit → (the main path's result, the arguments of every
+    call in order: value, spatial shapes, locations, weights and points per
+    level; the pixel decoder's encoder layers first, then the query
+    decoder's).  A hook on every module keeps the second call off the
+    graphs, which run no Python."""
+    import torch
+
     import openpsg_tpu_torch.models.segmenter.deform_layers as dl
 
+    res = fn()
     real, calls = dl.ms_deform_attn, []
 
     def record(*args, **kw):
@@ -767,9 +792,40 @@ def msda_calls(fn):
 
     dl.ms_deform_attn = record
     try:
-        return fn(), calls
+        with segmenter_eager():
+            recorded_res = fn()
     finally:
         dl.ms_deform_attn = real
+    if not same_bits(torch, res, recorded_res):
+        raise AssertionError("segment on the main path differs from its eager call")
+    log(f"[msda] segment on the main path equals its eager call bit for bit "
+        f"({len(calls)} ms_deform_attn calls recorded)")
+    return res, calls
+
+
+@contextlib.contextmanager
+def segmenter_eager():
+    """A no-op forward hook on every module for the block: ``segment`` then
+    runs eagerly (``utils/graphs.GraphKeeper.of``), so Python that records
+    calls inside the segmenter sees each one; its graphs run no Python."""
+    import torch.nn as nn
+
+    handle = nn.modules.module.register_module_forward_hook(lambda mod, args, out: None)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal structure, and equal bytes in every tensor leaf."""
+    from torch.utils._pytree import tree_flatten
+
+    (la, sa), (lb, sb) = tree_flatten(a), tree_flatten(b)
+    return sa == sb and all(
+        torch.equal(x.contiguous().view(-1).view(torch.uint8),
+                    y.contiguous().view(-1).view(torch.uint8))
+        if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
 
 
 def first_msda_call(fn):
@@ -3115,12 +3171,21 @@ def knob_run(torch, model, image, hw, forced=None):
     """One ``infer`` of ``model`` recorded (:func:`recorded`), with its
     segmenter output, the query decoder's two-stage selection (the encoder
     scores and the chosen indices) and its head outputs → (host dict,
-    logits, segmenter output, (scores, indices), head outputs)."""
+    logits, segmenter output, (scores, indices), head outputs).  The
+    selection is recorded in Python inside the segmenter, so ``segment``
+    runs eagerly (:func:`segmenter_eager`); on the card its output must
+    equal the main path's (its graph) on the same image bit for bit."""
     from openpsg_tpu_torch.models.segmenter import decoder
 
     segs, heads, picks = [], {}, []
     real_segment, real_topk = model.segment, decoder.topk_indices
-    model.segment = lambda img: segs.append(real_segment(img)) or segs[-1]
+
+    def eager_segment(img):
+        with segmenter_eager():
+            segs.append((img, real_segment(img)))
+        return segs[-1][1]
+
+    model.segment = eager_segment
     decoder.topk_indices = lambda x, k: picks.append((x.detach(), real_topk(x, k))) or picks[-1][1]
     hook = model.head.register_forward_hook(lambda mod, inp, o: heads.update(o))
     try:
@@ -3132,7 +3197,10 @@ def knob_run(torch, model, image, hw, forced=None):
         decoder.topk_indices = real_topk
     (dev, logits), = per_image(torch, rec)
     (scores, idx), = picks
-    return dev, logits, segs[0], (scores.float().cpu(), idx.cpu()), heads
+    (img, seg), = segs
+    if not same_bits(torch, real_segment(img), seg):
+        raise AssertionError("knobs: segment on the main path differs from its eager call")
+    return dev, logits, seg, (scores.float().cpu(), idx.cpu()), heads
 
 
 def phase_knobs_card_vs_cpu(torch, res, name):

@@ -7,8 +7,10 @@ leaf of the JAX tree has exactly one home here.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -44,6 +46,28 @@ def conv_hwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """Apply a Conv2d to one [H, W, C] map (the JAX package's layout)."""
     y = conv(x.permute(2, 0, 1)[None].to(conv.weight.dtype))
     return y[0].permute(1, 2, 0)
+
+
+def device_constant(build):
+    """``build(*key)`` (numpy arrays, or a tuple of them) as tensors on a
+    device, made once per (key, device) and cached: ``f(*key, device)``.
+    The same arithmetic as a per-call ``torch.from_numpy(...).to(device)``,
+    so the same bits, but a call at a key seen before copies nothing from
+    the host and waits for nothing (a CUDA graph of the call needs that).
+    Made outside inference mode, so a cached tensor serves every later
+    call, those that take gradients included; never written in place."""
+
+    @functools.lru_cache(maxsize=64)
+    def on(*key_and_device):
+        *key, device = key_and_device
+        made = build(*key)
+        with torch.inference_mode(False):
+            if isinstance(made, tuple):
+                return tuple(torch.from_numpy(np.asarray(a)).to(device) for a in made)
+            return torch.from_numpy(np.asarray(made)).to(device)
+
+    on.__doc__ = build.__doc__
+    return on
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:

@@ -62,6 +62,7 @@ from openpsg_tpu_torch.ops.mask_ops import (
     masks_from_idmap,
 )
 from openpsg_tpu_torch.parallel.comm import dp_map
+from openpsg_tpu_torch.utils.graphs import graphed_call
 from openpsg_tpu_torch.utils.profiling import span
 
 # the config ``model.type`` names this class serves (mmdet's registry names)
@@ -253,8 +254,11 @@ class PSGMask2FormerRelation:
     # ------------------------------------------------------------ stages
     @torch.no_grad()
     def segment(self, image_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Segmenter forward on one [H, W, 3] 0-255 image on the device."""
-        return self.segmenter(normalize_image(image_u8))
+        """Segmenter forward on one [H, W, 3] 0-255 image on the device, from
+        one segmented CUDA graph per image shape on one CUDA device
+        (``utils/graphs.graphed_call``), as ``PSGv4.segment``."""
+        return graphed_call(self.segmenter, lambda img: self.segmenter(normalize_image(img)),
+                            image_u8)
 
     @torch.no_grad()
     def fuse_select(self, seg_out, hw, img_hw):

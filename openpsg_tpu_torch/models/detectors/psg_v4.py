@@ -68,6 +68,7 @@ from openpsg_tpu_torch.models.segmenter.openseed import (
     normalize_image,
 )
 from openpsg_tpu_torch.ops.mask_ops import downsample_nearest
+from openpsg_tpu_torch.utils.graphs import graphed_call
 from openpsg_tpu_torch.utils.profiling import span
 
 _INT_SENTINEL = np.iinfo(np.int32).max
@@ -320,8 +321,13 @@ class PSGv4:
     # ------------------------------------------------------------ stages
     @torch.no_grad()
     def segment(self, image_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Segmenter forward on one [H, W, 3] 0-255 image on the device."""
-        return self.segmenter(normalize_image(image_u8), self.class_embeds)
+        """Segmenter forward on one [H, W, 3] 0-255 image on the device.  On
+        one CUDA device it replays one segmented CUDA graph per image shape
+        (``utils/graphs.graphed_call``; hooks on the segmenter's modules run
+        between the graphs), elsewhere it runs eagerly: the same bits."""
+        return graphed_call(self.segmenter,
+                            lambda img: self.segmenter(normalize_image(img), self.class_embeds),
+                            image_u8, reads=(self.class_embeds,))
 
     @torch.no_grad()
     def fuse_select(self, seg_out, img_hw):

@@ -21,11 +21,12 @@ trip indexes them with the step as a device tensor.  On one CUDA device the
 LLM module keeps the states of its last few decode shapes, and the trips
 after the first of a shape are replayed from CUDA graphs: one capture
 serves every step.  The graph splits where the trip opens a span
-(``psg.mla``, ``psg.moe``) or calls a module that has forward hooks, which
-runs eagerly between the graphs (``utils/graphs.py``), so spans and hooks
-see every trip as the eager trip shows it.  Elsewhere a state made for the
-call runs the same trip eagerly.  The prefill stays eager; the early-exit
-test stays on the host before every trip.  Counters:
+(``psg.mla``, ``psg.moe``) and around the hooks of a hooked module (the
+benchmark's on ``lm_head`` and the routers), which run eagerly between the
+graphs while the module's forward stays captured (``utils/graphs.py``), so
+spans and hooks see every trip as the eager trip shows it.  Elsewhere a
+state made for the call runs the same trip eagerly.  The prefill stays
+eager; the early-exit test stays on the host before every trip.  Counters:
 ``greedy_decode.graph_captures``, ``.graph_trips`` and ``.eager_trips``.
 
 A tensor-parallel LLM (``parallel.sharding.shard_params``) decodes the
@@ -37,15 +38,12 @@ The CPU and a pipeline stage run their trips eagerly too.
 
 from __future__ import annotations
 
-import contextlib
-import itertools
-from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from openpsg_tpu_torch.utils.graphs import SegmentedGraph, global_hooks, hooked
+from openpsg_tpu_torch.utils.graphs import GraphKeeper, SegmentedGraph, lasting
 from openpsg_tpu_torch.utils.profiling import span
 
 
@@ -103,70 +101,31 @@ def pick(lg: torch.Tensor, rows: torch.Tensor):
     return tok, torch.log_softmax(lg, dim=-1)[rows, tok]
 
 
-class DecodeGraphs:
-    """The graph path's decode states of one LLM, kept on the module
-    (``_decode_graphs``), so they are freed with it: one per decode shape
-    (B, Lp, S, dtype, device), the ``KEPT`` used last (serving's groups of
-    1 to 4 images are 4 shapes).  They are dropped when a parameter or
-    buffer moved or the set of hooked modules changed, since a graph reads
-    fixed addresses and splits where a hook runs."""
+class DecodeGraphs(GraphKeeper):
+    """The graph path's decode states of one LLM (a
+    :class:`~openpsg_tpu_torch.utils.graphs.GraphKeeper` kept on the module
+    as ``_decode_graphs``): one per decode shape (B, Lp, S, dtype, device),
+    the ``KEPT`` used last (serving's groups of 1 to 4 images are 4
+    shapes), dropped when a parameter or buffer moved or the set of hooked
+    modules changed."""
 
-    KEPT = 4
-
-    def __init__(self, dev: torch.device):
-        self.signature = None
-        self.states: "OrderedDict[tuple, DecodeState]" = OrderedDict()
-        # the side stream every capture of this LLM runs on
-        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-
-    def refresh(self, model: nn.Module) -> None:
-        sig = (tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())),
-               tuple(i for i, m in enumerate(model.modules()) if hooked(m)))
-        if sig != self.signature:
-            self.signature, self.states = sig, OrderedDict()
+    ATTR = "_decode_graphs"
 
     def state(self, k0, v0, max_new_tokens: int, dtype) -> "DecodeState":
         """The kept state of the prefill's (k0, v0) shape, made if there is
         none; the least recently used beyond ``KEPT`` is dropped."""
         B, Lp = k0.shape[1:3]
         key = (B, Lp, Lp + max_new_tokens, dtype, k0.device)
-        st = self.states.pop(key, None)
-        if st is None:
-            st = DecodeState(k0, v0, max_new_tokens, dtype, self.stream)
-        self.states[key] = st
-        while len(self.states) > self.KEPT:
-            self.states.popitem(last=False)
-        return st
+        return self.get(key, lambda: DecodeState(k0, v0, max_new_tokens, dtype, self.stream))
 
 
 def _graphs(model: nn.Module, dev: torch.device) -> Optional[DecodeGraphs]:
-    """The model's :class:`DecodeGraphs` where the graph path engages: on
-    CUDA, neither tensor-parallel nor a pipeline stage (collectives stay
-    eager), no hook on every module, ``embed`` and ``forward`` the class's
-    own (one replaced on the instance, as a teacher-forcing wrapper is, is
-    Python that a replay would not run again), not inside another capture;
-    else None (the trips run eagerly)."""
-    if dev.type != "cuda" or torch.cuda.is_current_stream_capturing() or global_hooks():
-        return None
-    if "embed" in vars(model) or "forward" in vars(model):
-        return None
-    if any(getattr(m, "tp", None) is not None or getattr(m, "stage_range", None) is not None
-           for m in model.modules()):
-        return None
-    graphs = model.__dict__.get("_decode_graphs")
-    if graphs is None:
-        graphs = model._decode_graphs = DecodeGraphs(dev)
-    graphs.refresh(model)
-    return graphs
-
-
-@contextlib.contextmanager
-def _lasting():
-    """Where tensors that may outlive the call are made: outside inference
-    mode (a later call outside it updates them in place, which an inference
-    tensor refuses), without autograd."""
-    with torch.inference_mode(False), torch.no_grad():
-        yield
+    """The model's :class:`DecodeGraphs` where the graph path engages
+    (:meth:`~openpsg_tpu_torch.utils.graphs.GraphKeeper.of`, with ``embed``
+    and ``forward`` the class's own: one replaced on the instance, as a
+    teacher-forcing wrapper is, is Python that a replay would not run
+    again); else None (the trips run eagerly)."""
+    return DecodeGraphs.of(model, dev, methods=("embed", "forward"))
 
 
 class DecodeState:
@@ -175,16 +134,16 @@ class DecodeState:
     0-d device tensor, the tokens and scores so far) and its trip
     (:meth:`step`).  A kept state (``stream`` given) captures its trip as a
     :class:`~openpsg_tpu_torch.utils.graphs.SegmentedGraph` (split where a
-    span opens or a hooked module runs) on the shape's first trip and
-    replays it on every trip after: the same operations on the same
-    inputs, so the same bits as the trip run eagerly."""
+    span opens and around a hooked module's hooks) on the shape's first
+    trip and replays it on every trip after: the same operations on the
+    same inputs, so the same bits as the trip run eagerly."""
 
     def __init__(self, k0, v0, max_new_tokens: int, dtype,
                  stream: Optional[torch.cuda.Stream] = None):
         L, B, Lp = k0.shape[:3]
         S, dev = Lp + max_new_tokens, k0.device
         self.Lp, self.stream = Lp, stream
-        with _lasting():
+        with lasting():
             # each cache tensor shaped from its own prefill tensor: the
             # Llama's (k, v) of the rank's kv heads, or MLA's latent and k_pe
             self.cache = tuple(torch.empty((L, B, S) + tuple(t.shape[3:]), dtype=dtype,
@@ -230,9 +189,9 @@ class DecodeState:
         """One decode step of a kept state: the first of the shape runs as
         its capture, the rest replay it."""
         if self.graph is None:
-            with _lasting():
-                self.graph = SegmentedGraph.capture(lambda: self.step(model), model.modules(),
-                                                    self.stream)
+            with lasting():
+                self.graph = SegmentedGraph.capture(lambda: self.step(model),
+                                                    model.named_modules(), self.stream)
             greedy_decode.graph_captures += 1
         else:
             self.graph.replay()

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from openpsg_tpu_torch.models.common import LayerNorm, mm_f32
+from openpsg_tpu_torch.models.common import LayerNorm, device_constant, mm_f32
 from openpsg_tpu_torch.models.segmenter.deform_layers import (
     FFN,
     MLP,
@@ -17,7 +17,24 @@ from openpsg_tpu_torch.models.segmenter.deform_layers import (
     box_sine_embed,
     inverse_sigmoid,
     make_reference_points,
+    shape_key,
 )
+
+
+@device_constant
+def proposal_bases(spatial_shapes: Tuple[Tuple[int, int], ...], wh_exp: Tuple[int, ...]):
+    """The two-stage proposals' fixed part (gen_encoder_output_proposals):
+    → (valid [Lv] bool, base [Lv, 4] float32 cxcywh, inf, the float32
+    scalar that invalid proposal logits take).  A border proposal outside
+    (0.01, 0.99) is invalid."""
+    centers = make_reference_points(spatial_shapes)
+    base_wh = np.concatenate([
+        np.full((h * w, 2), 0.05, np.float32) * (2.0 ** wh_exp[lvl])
+        for lvl, (h, w) in enumerate(spatial_shapes)
+    ])
+    base = np.concatenate([centers, base_wh], -1).astype(np.float32)
+    valid = ((base > 0.01) & (base < 0.99)).all(-1)
+    return valid, base, np.asarray(float("inf"), np.float32)
 
 
 def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -118,29 +135,18 @@ class QueryDecoder(nn.Module):
         """memory [Lv, C]; mask_features [H4, W4, mask_dim]; class_embeds
         [num_classes, proj_dim] → dict cls_logits [Q, classes] f32, masks
         [Q, H4, W4] f32, boxes [Q, 4] cxcywh, query_embed [Q, C]."""
-        dev = memory.device
-        # two-stage proposals (gen_encoder_output_proposals): border
-        # proposals outside (0.01, 0.99) are invalid — memory zeroed,
-        # proposal logits +inf — but all rows still compete in the top-k
-        centers = make_reference_points(spatial_shapes)
-        wh_exp = self.level_wh_exp or tuple(range(len(spatial_shapes)))
-        base_wh = np.concatenate([
-            np.full((h * w, 2), 0.05, np.float32) * (2.0 ** wh_exp[lvl])
-            for lvl, (h, w) in enumerate(spatial_shapes)
-        ])
-        base_np = np.concatenate([centers, base_wh], -1).astype(np.float32)
-        valid = torch.from_numpy(((base_np > 0.01) & (base_np < 0.99)).all(-1)).to(dev)
-        base = torch.from_numpy(base_np).to(dev)
+        # two-stage proposals: invalid border proposals have their memory
+        # zeroed and proposal logits +inf, but all rows still compete in the
+        # top-k
+        wh_exp = tuple(self.level_wh_exp or range(len(spatial_shapes)))
+        valid, base, inf = proposal_bases(shape_key(spatial_shapes), wh_exp, memory.device)
 
         enc_out = self.enc_norm(self.enc_proj(
             torch.where(valid[:, None], memory, torch.zeros_like(memory))))
         enc_score = self._class_logits(enc_out, class_embeds).max(dim=-1).values
         top_idx = topk_indices(enc_score, self.num_queries)
         enc_delta = self.enc_box_head(enc_out)
-        proposal_logits = torch.where(
-            valid[:, None], inverse_sigmoid(base),
-            torch.tensor(float("inf"), device=dev),
-        )
+        proposal_logits = torch.where(valid[:, None], inverse_sigmoid(base), inf)
         proposal_boxes = torch.sigmoid(proposal_logits + enc_delta.float())
         # the proposals start the decoder without a gradient (the JAX
         # decoder's stop_gradient): in training, the encoder's proposal

@@ -10,8 +10,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from openpsg_tpu_torch.models.common import LayerNorm
+from openpsg_tpu_torch.models.common import LayerNorm, device_constant
 from openpsg_tpu_torch.ops.deform_attn import ms_deform_attn
+
+
+def shape_key(spatial_shapes) -> Tuple[Tuple[int, int], ...]:
+    """Level shapes as a tuple of (h, w) int pairs: the cached constants' key."""
+    return tuple((int(h), int(w)) for h, w in spatial_shapes)
 
 
 def make_reference_points(spatial_shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
@@ -37,6 +42,27 @@ def make_cumsum_points(spatial_shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
         )
         pts.append(np.stack([xs, ys], -1).reshape(-1, 2))
     return np.concatenate(pts, 0).astype(np.float32)
+
+
+# the same on a device, cached per (spatial_shapes, device): pass the
+# shapes as a tuple of (h, w) int pairs
+reference_points_on = device_constant(make_reference_points)
+cumsum_points_on = device_constant(make_cumsum_points)
+
+
+@device_constant
+def level_sizes(spatial_shapes: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+    """Each level's (w, h) as float32: [L, 2]."""
+    return np.asarray([(w, h) for (h, w) in spatial_shapes], np.float32)
+
+
+@device_constant
+def point_keep(L: int, K: int, points_per_level: Tuple[int, ...]) -> np.ndarray:
+    """[L, K] float32: 1 for the first K_l points of level l, else 0."""
+    keep = np.zeros((L, K), np.float32)
+    for lvl, kl in enumerate(points_per_level):
+        keep[lvl, : int(kl)] = 1.0
+    return keep
 
 
 def _grid_offset_bias(nH: int, L: int, K: int) -> np.ndarray:
@@ -82,17 +108,11 @@ class MSDeformAttnLayer(nn.Module):
         attn = self.attention_weights(query).reshape(1, Lq, nH, L * K)
         attn = torch.softmax(attn.float(), dim=-1).reshape(1, Lq, nH, L, K)
         if self.points_per_level is not None:
-            keep = torch.zeros(L, K, dtype=torch.float32, device=attn.device)
-            for lvl, kl in enumerate(self.points_per_level):
-                keep[lvl, : int(kl)] = 1.0
-            attn = attn * keep
+            attn = attn * point_keep(L, K, tuple(self.points_per_level), attn.device)
             attn = attn / torch.clamp(attn.sum(dim=(-2, -1), keepdim=True), min=1e-9)
         ref = reference_points.float()
         if ref.shape[-1] == 2:
-            sizes = torch.tensor(
-                [(w, h) for (h, w) in spatial_shapes], dtype=torch.float32,
-                device=ref.device,
-            )
+            sizes = level_sizes(shape_key(spatial_shapes), ref.device)
             loc = ref[None, :, None, None, None, :] + off / sizes[None, None, None, :, None, :]
         else:
             centers, wh = ref[..., :2], ref[..., 2:]
@@ -142,13 +162,16 @@ class MLP(nn.Module):
         return getattr(self, f"fc{self.layers - 1}")(x)
 
 
+@device_constant
+def sine_ladder(half: int, temperature: float) -> np.ndarray:
+    """The sine embedding's shared frequency ladder: [half] float32."""
+    return np.asarray(temperature ** (2.0 * (np.arange(half) // 2) / half), np.float32)
+
+
 def _sine_1d(v: torch.Tensor, half: int, temperature: float) -> torch.Tensor:
     """[..., 1] normalized coordinate → [..., half], interleaved (sin, cos)
     over a shared frequency ladder (detectron2 PositionEmbeddingSine)."""
-    dim_t = torch.tensor(
-        temperature ** (2.0 * (np.arange(half) // 2) / half),
-        dtype=torch.float32, device=v.device,
-    )
+    dim_t = sine_ladder(half, temperature, v.device)
     ang = v.float() * (2.0 * np.pi) / dim_t
     sin = torch.sin(ang[..., 0::2])
     cos = torch.cos(ang[..., 1::2])

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -27,7 +26,7 @@ from openpsg_tpu_torch.models.common import LayerNorm, mm_f32
 from openpsg_tpu_torch.models.segmenter.decoder import MultiHeadAttention
 from openpsg_tpu_torch.models.segmenter.deform_layers import (
     MLP,
-    make_cumsum_points,
+    cumsum_points_on,
     sine_pos_embed,
 )
 
@@ -100,8 +99,7 @@ class Mask2FormerDecoder(nn.Module):
         start = 0
         for lvl, (h, w) in enumerate(spatial_shapes):
             keys = memory[start:start + h * w]
-            coords = torch.from_numpy(np.asarray(make_cumsum_points([(h, w)]))).to(dev)
-            pe = sine_pos_embed(coords, C).to(dtype)
+            pe = sine_pos_embed(cumsum_points_on(((int(h), int(w)),), dev), C).to(dtype)
             pos = pe + getattr(self, f"level_embed{lvl}").to(dtype)[None]
             # torch bilinear without antialiasing: jax.image.resize's
             # antialias=False kernel on this downscale

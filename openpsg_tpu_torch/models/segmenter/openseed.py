@@ -7,9 +7,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from openpsg_tpu_torch.models.common import device_constant
 from openpsg_tpu_torch.models.segmenter.decoder import QueryDecoder
 from openpsg_tpu_torch.models.segmenter.pixel_decoder import PixelDecoder
 from openpsg_tpu_torch.models.segmenter.swin import SwinTransformer
@@ -80,8 +82,13 @@ class OpenSeedSegmenter(nn.Module):
         return out
 
 
+@device_constant
+def pixel_stats():
+    """(mean, std) [3] float32 of the RGB channels."""
+    return np.asarray(PIXEL_MEAN, np.float32), np.asarray(PIXEL_STD, np.float32)
+
+
 def normalize_image(image_u8: torch.Tensor) -> torch.Tensor:
     """uint8/float [H, W, 3] RGB 0-255 → normalized float32."""
-    mean = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=image_u8.device)
-    std = torch.tensor(PIXEL_STD, dtype=torch.float32, device=image_u8.device)
+    mean, std = pixel_stats(image_u8.device)
     return (image_u8.float() - mean) / std

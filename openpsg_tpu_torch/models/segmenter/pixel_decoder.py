@@ -13,8 +13,9 @@ import torch.nn.functional as F
 from openpsg_tpu_torch.models.common import GroupNorm32, conv_hwc
 from openpsg_tpu_torch.models.segmenter.deform_layers import (
     DeformableEncoderLayer,
-    make_cumsum_points,
-    make_reference_points,
+    cumsum_points_on,
+    reference_points_on,
+    shape_key,
     sine_pos_embed,
 )
 
@@ -67,17 +68,16 @@ class PixelDecoder(nn.Module):
                 conv_hwc(getattr(self, f"input_proj{i}"), prev))
             tokens.append(t)
             prev = t
-        spatial_shapes = tuple((t.shape[0], t.shape[1]) for t in tokens)
+        spatial_shapes = shape_key(t.shape[:2] for t in tokens)
         dtype, dev = tokens[0].dtype, tokens[0].device
 
         pos = []
         for i, t in enumerate(tokens):
-            coords = torch.from_numpy(make_cumsum_points([spatial_shapes[i]])).to(dev)
-            p = sine_pos_embed(coords, self.dim)
+            p = sine_pos_embed(cumsum_points_on(spatial_shapes[i:i + 1], dev), self.dim)
             pos.append(p.to(dtype) + self.level_embed[i][None, :].to(dtype))
         src = torch.cat([t.reshape(-1, self.dim) for t in tokens], 0)
         pos_embed = torch.cat(pos, 0)
-        ref = torch.from_numpy(make_reference_points(spatial_shapes)).to(dev)
+        ref = reference_points_on(spatial_shapes, dev)
         for layer in self.layers:
             src = layer(src, spatial_shapes, ref, pos_embed)
 

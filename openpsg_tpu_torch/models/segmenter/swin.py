@@ -11,20 +11,23 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from openpsg_tpu_torch.models.common import LayerNorm, conv_hwc, mm_f32
+from openpsg_tpu_torch.models.common import LayerNorm, conv_hwc, device_constant, mm_f32
 
 
-def _rel_pos_index(window: int) -> np.ndarray:
-    """[win², win²] index into the (2w-1)² relative position bias table."""
+@device_constant
+def rel_pos_index(window: int) -> np.ndarray:
+    """[win⁴] flat index into the (2w-1)² relative position bias table
+    ([win², win²] row-major)."""
     coords = np.stack(
         np.meshgrid(np.arange(window), np.arange(window), indexing="ij")
     ).reshape(2, -1)
     rel = coords[:, :, None] - coords[:, None, :]
     rel = rel.transpose(1, 2, 0) + (window - 1)
-    return (rel[..., 0] * (2 * window - 1) + rel[..., 1]).astype(np.int64)
+    return (rel[..., 0] * (2 * window - 1) + rel[..., 1]).astype(np.int64).reshape(-1)
 
 
-def _shift_mask(Hp: int, Wp: int, w: int, s: int) -> np.ndarray:
+@device_constant
+def shift_mask(Hp: int, Wp: int, w: int, s: int) -> np.ndarray:
     """Additive mask [nW, w², w²] separating the 9 shifted-window regions."""
     img = np.zeros((Hp, Wp), np.int32)
     cnt = 0
@@ -44,7 +47,6 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_bias = nn.Parameter(torch.empty((2 * window - 1) ** 2, num_heads))
-        self._rel_index = _rel_pos_index(window).reshape(-1)
 
     def init_extra(self, gen):
         self.rel_pos_bias.normal_(0.0, 0.02, generator=gen).clamp_(-0.04, 0.04)
@@ -57,8 +59,7 @@ class WindowAttention(nn.Module):
         qkv = self.qkv(x).reshape(nW, L, 3, nh, hd)
         q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.unbind(2))
         attn = mm_f32(q * hd ** -0.5, k, "whld,whmd->whlm")
-        idx = torch.from_numpy(self._rel_index).to(x.device)
-        bias = self.rel_pos_bias[idx].reshape(L, L, nh)
+        bias = self.rel_pos_bias[rel_pos_index(self.window, x.device)].reshape(L, L, nh)
         attn = attn + bias.permute(2, 0, 1)[None].float()
         if attn_mask is not None:
             attn = attn + attn_mask[:, None]
@@ -86,7 +87,7 @@ class SwinBlock(nn.Module):
         mask = None
         if s > 0:
             h = torch.roll(h, (-s, -s), dims=(0, 1))
-            mask = torch.from_numpy(_shift_mask(Hp, Wp, w, s)).to(x.device)
+            mask = shift_mask(Hp, Wp, w, s, x.device)
         h = h.reshape(Hp // w, w, Wp // w, w, C).permute(0, 2, 1, 3, 4)
         h = self.attn(h.reshape(-1, w * w, C), mask)
         h = h.reshape(Hp // w, Wp // w, w, w, C).permute(0, 2, 1, 3, 4)

@@ -16,7 +16,9 @@ kept exactly:
   needs (:func:`needs_autograd`), as the JAX package's ``custom_vjp`` routes
   AD through its plain implementation; ``ms_deform_attn.plain_calls`` counts
   those.  Every other CUDA tensor launches the kernel once
-  (``ms_deform_attn.launches``) or raises (:func:`check_kernel_inputs`).
+  (``ms_deform_attn.launches``, bumped through ``utils/graphs.bump``, so a
+  replayed CUDA graph counts its launches) or raises
+  (:func:`check_kernel_inputs`).
 * :func:`ms_deform_attn_plain` — per level, the K_l points of all queries
   and heads are gathered at once from a quad table of four rolled copies and
   reduced in float32 (the JAX version accumulates per (level, point) in
@@ -33,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from openpsg_tpu_torch.ops import _build
+from openpsg_tpu_torch.utils.graphs import bump
 from openpsg_tpu_torch.utils.profiling import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -226,5 +229,5 @@ def _launch(value, spatial_shapes, loc, aw, kpl):
                  nH, hd, L, K, levels, _DTYPE_CODES[value.dtype], P, threads, stream)
     if err != 0:
         raise RuntimeError(f"ms_deform_attn launch failed: CUDA error {err}")
-    ms_deform_attn.launches += 1
+    bump(ms_deform_attn, "launches", 1)     # a replayed graph counts its launches too
     return out
